@@ -3,6 +3,9 @@ each with a wrapper that checks its input and counts its launches, and a
 plain PyTorch version in ``ref.py`` that runs on CPU tensors."""
 
 from . import ops, ref
-from .sampling import greedy_sample
+from .flash_attention import flash_attention
+from .matmul import configured_matmul, matmul
+from .sampling import greedy_sample, top_k
 
-__all__ = ["greedy_sample", "ops", "ref"]
+__all__ = ["configured_matmul", "flash_attention", "greedy_sample", "matmul", "ops", "ref",
+           "top_k"]

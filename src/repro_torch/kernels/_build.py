@@ -7,7 +7,8 @@ git-ignored), and loaded with ``ctypes``; pointers and the stream cross as
 PyTorch's headers takes seconds, where ``torch.utils.cpp_extension`` takes
 minutes.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+There is no fallback: a missing ``nvcc`` or a failed build raises, and so
+does a launch whose C entry point returns a CUDA error (:func:`check`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -66,8 +68,23 @@ def build(name: str) -> Build:
     return _builds[name]
 
 
+def build_all(names: list[str]) -> list[Build]:
+    """Build the named kernels, one ``nvcc`` per source, all started
+    together; raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = [pool.submit(build, name) for name in names]
+        return [f.result() for f in futures]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
     if name not in _libs:
         _libs[name] = ctypes.CDLL(str(build(name).path))
     return _libs[name]
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error: a refused launch never
+    runs, and no later synchronisation would report it."""
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

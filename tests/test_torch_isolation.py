@@ -41,6 +41,30 @@ def test_port_serves_with_jax_and_repro_unimportable():
     assert "served 3" in out.stdout
 
 
+_CALIBRATE_WITHOUT_JAX = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+from repro_torch.engine import calibrate, load_fits
+out = sys.argv[1]
+calibrate.main(["--device", "cpu", "--smoke", "--repeats", "1", "--out", out])
+assert len(load_fits(out)) == 3
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("calibrated", json.load(open(out))["backend"])
+"""
+
+
+def test_port_calibrates_on_the_cpu_with_jax_and_repro_unimportable(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _CALIBRATE_WITHOUT_JAX, str(tmp_path / "f.json")],
+                         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "calibrated cpu" in out.stdout
+
+
 def test_no_source_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
