@@ -23,7 +23,11 @@ Phases, each printing its results; any failure exits non-zero:
 6. Kernel check of matmul, configured_matmul, flash_attention and top_k,
    each against its plain version at its stated tolerance, at the
    calibration ladder's shapes, at qwen2-0.5b's widths and on adversarial
-   inputs, then timed as in 3.
+   inputs, then timed as in 3. matmul and flash_attention print the route
+   each call took (wgmma, pipelined or simt, by the wrappers' per-route
+   counters), are checked on every route, and must take wgmma for bf16 at
+   qwen2-0.5b's widths; a position-coded bf16 product must come out
+   exactly. Their SIMT kernels are timed beside the new routes.
 7. Calibration path: ``repro_torch.engine.calibrate.run_calibration`` over
    the full shape ladder on the card, each fit and sample printed beside the
    sample's device time, with the matmul, flash_attention and greedy_sample
@@ -31,7 +35,9 @@ Phases, each printing its results; any failure exits non-zero:
 8. Ops path: ``kernels.ops.configured_matmul_op`` on int8 operands at
    qwen2-0.5b's MLP width and ``kernels.ops.top_k_op`` on the served
    model's last-position logits, the only entry points of those two
-   kernels, with their launch counts read just after.
+   kernels, and ``matmul_op`` and ``attention_op`` in bf16 at qwen2-0.5b's
+   widths (the wgmma routes, which the calibration's f32 does not run),
+   with their launch counts read just after.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -128,12 +134,12 @@ def _timed(label: str, runs: dict, bound_ms: float, bound_by: str, smi: str) -> 
             calls[k].append(_call_ms(runs[k]))
     ms = {k: float(np.median(t)) for k, t in times.items()}
     call = {k: float(np.median(t)) for k, t in calls.items()}
+    names = {"ms": "kernel_ms"}
     print(f"[kernel] {label}, device time per call (CUDA graph): "
-          f"kernel_ms={ms['ms']:.5f} plain_ms={ms['plain_ms']:.5f} "
-          f"library_ms={ms['library_ms']:.5f} bound_ms={bound_ms:.5f} ({bound_by}; {smi})")
+          + " ".join(f"{names.get(k, k)}={v:.5f}" for k, v in ms.items())
+          + f" bound_ms={bound_ms:.5f} ({bound_by}; {smi})")
     print(f"[kernel] {label}, per call issued from Python: "
-          f"kernel_ms={call['ms']:.5f} plain_ms={call['plain_ms']:.5f} "
-          f"library_ms={call['library_ms']:.5f} ({smi})")
+          + " ".join(f"{names.get(k, k)}={v:.5f}" for k, v in call.items()) + f" ({smi})")
     return ms
 
 
@@ -144,11 +150,34 @@ def _bound_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _record(name: str, source: str, replaces: str, err: float, ms: dict, bound: tuple) -> dict:
+def _record(name: str, source: str, replaces: str, err: float, ms: dict, bound: tuple,
+            **extra) -> dict:
+    """One kernel's entry in the JSON record; ``extra`` adds keys such as the
+    wrapper's route (``path``) and the operands' type."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms["ms"],
             "plain_ms": ms["plain_ms"], "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": ms["library_ms"]}
+            "library_ms": ms["library_ms"], **extra}
+
+
+def _off_alignment(x: torch.Tensor) -> torch.Tensor:
+    """The same values, contiguous, one element past a 16-byte boundary:
+    the wrappers send such operands to their SIMT kernels."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _routed(wrapper, fn) -> tuple:
+    """``fn()``'s result and the route its one launch took, by the wrapper's
+    per-route counters."""
+    before = dict(wrapper.launches_by_route)
+    out = fn()
+    moved = [r for r, n in wrapper.launches_by_route.items() if n != before[r]]
+    if len(moved) != 1 or wrapper.launches_by_route[moved[0]] != before[moved[0]] + 1:
+        raise SystemExit(f"one call launched {wrapper.launches_by_route} after {before}")
+    return out, moved[0]
 
 
 def phase_build() -> None:
@@ -213,41 +242,109 @@ def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(diff.masked_fill(both_nan, 0.0).max()) if diff.numel() else 0.0
 
 
-def check_matmul(smi: str) -> dict:
+def _issue_abba(label: str, wgmma, simt, smi: str) -> None:
+    """Per-call issue time from Python of the two routes at a shape whose
+    device time is well below it, so the difference is host time: the TMA
+    maps the wgmma route encodes at each call. In turns (wgmma, simt, simt,
+    wgmma), medians."""
+    t = {"wgmma": [], "simt": []}
+    for route, fn in (("wgmma", wgmma), ("simt", simt), ("simt", simt), ("wgmma", wgmma)):
+        t[route].append(_call_ms(fn))
+    print(f"[kernel] {label}, per call issued from Python: wgmma_ms="
+          f"{np.median(t['wgmma']):.5f} simt_ms={np.median(t['simt']):.5f} ({smi})")
+
+
+def _position_coded(m: int, k: int, n: int) -> tuple:
+    """bf16 operands whose product is known exactly: A selects row
+    sel(i) = (7 i + 3) mod K of B for row i of C (0/1 entries) and B holds
+    the small integers 16 (k mod 16) + (n mod 16), exact in bf16. Every
+    C[i, j] must equal B[sel(i), j], and a wrong value names the row and
+    column of B it came from."""
+    sel = (torch.arange(m, device="cuda") * 7 + 3) % k
+    a = torch.zeros((m, k), device="cuda")
+    a[torch.arange(m, device="cuda"), sel] = 1
+    b = (torch.arange(k, device="cuda")[:, None] % 16 * 16
+         + torch.arange(n, device="cuda")[None, :] % 16).float()
+    return a.bfloat16(), b.bfloat16(), sel
+
+
+def check_matmul(smi: str) -> list[dict]:
     """f32 at rtol 1e-4 (atol 1e-3: the rounding of <= 896-term f32 sums
     taken in another order), bf16 at test_matmul_matches_oracle's 2e-2, at
-    the calibration ladder's shapes and at qwen2-0.5b's MLP width."""
+    the calibration ladder's shapes and at qwen2-0.5b's MLP width, each
+    through the route the wrapper chooses, and once more off 16-byte
+    alignment (the SIMT route); the position-coded bf16 product exactly.
+    The qwen-width bf16 call must take the wgmma route."""
     from repro_torch.engine.calibrate import SHAPES
     from repro_torch.kernels import ref
     from repro_torch.kernels.matmul import matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    worst = 0.0
-    for m, k, n in [*SHAPES["matmul"], (QWEN_M, QWEN_D, QWEN_FF), (130, 70, 33)]:
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for m, k, n in [*SHAPES["matmul"], (QWEN_M, QWEN_D, QWEN_FF), (130, 70, 33), (130, 72, 200)]:
         a = torch.randn((m, k), generator=gen, device="cuda")
         b = torch.randn((k, n), generator=gen, device="cuda")
         for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-3)),
                            (torch.bfloat16, dict(rtol=2e-2, atol=2e-2))):
-            x, y = a.to(dtype), b.to(dtype)
-            got, want = matmul(x, y), ref.matmul_ref(x, y)
-            torch.cuda.synchronize()
-            err = _max_err(got, want)
-            worst = max(worst, err)
-            print(f"[kernel] matmul ({m},{k})x({k},{n}) {dtype}: max_abs_err={err:.6g}")
-            torch.testing.assert_close(got, want, **tol)
+            for off in (False, True):
+                x, y = a.to(dtype), b.to(dtype)
+                if off:
+                    x = _off_alignment(x)
+                got, route = _routed(matmul, lambda: matmul(x, y))
+                want = ref.matmul_ref(x, y)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                worst[dtype] = max(worst[dtype], err)
+                print(f"[kernel] matmul ({m},{k})x({k},{n}) {dtype}{' off-aligned' if off else ''}:"
+                      f" route={route} max_abs_err={err:.6g}")
+                torch.testing.assert_close(got, want, **tol)
+                if (m, k, n, dtype, off) == (QWEN_M, QWEN_D, QWEN_FF, torch.bfloat16, False) \
+                        and route != "wgmma":
+                    raise SystemExit(f"the qwen-width bf16 matmul took route {route}, not wgmma")
+    for m, k, n in [(QWEN_M, QWEN_D, QWEN_FF), (128, 128, 128), (130, 72, 200), (5, 8, 8)]:
+        a, b, sel = _position_coded(m, k, n)
+        got, route = _routed(matmul, lambda: matmul(a, b))
+        torch.cuda.synchronize()
+        wrong = (got.float() != b[sel].float()).nonzero()
+        for i, j in wrong[:8].tolist():
+            v = int(got[i, j].float())
+            print(f"[kernel]   C[{i},{j}] = {v}: from k % 16 = {v // 16}, n % 16 = {v % 16}; "
+                  f"wanted k = {int(sel[i])} (k % 16 = {int(sel[i]) % 16}), n % 16 = {j % 16}")
+        print(f"[kernel] matmul position-coded ({m},{k})x({k},{n}) bf16: route={route} "
+              f"wrong={len(wrong)} of {m * n}")
+        if len(wrong) or route != "wgmma":
+            raise SystemExit("the position-coded bf16 product is not exact on the wgmma route")
+
     m, k, n = QWEN_M, QWEN_D, QWEN_FF
     a = torch.randn((m, k), generator=gen, device="cuda")
     b = torch.randn((k, n), generator=gen, device="cuda")
     ab, bb = a.bfloat16(), b.bfloat16()
-    _timed(f"matmul ({m},{k})x({k},{n}) bf16", {
+    ab_off, a_off = _off_alignment(ab), _off_alignment(a)
+    bound16 = _bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n, BF16_FLOPS)
+    ms16 = _timed(f"matmul ({m},{k})x({k},{n}) bf16 (route wgmma; simt_ms: the SIMT kernel)", {
         "ms": lambda: matmul(ab, bb), "plain_ms": lambda: ref.matmul_ref(ab, bb),
-        "library_ms": lambda: torch.matmul(ab, bb)},
-        *_bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n, BF16_FLOPS), smi)
+        "library_ms": lambda: torch.matmul(ab, bb), "simt_ms": lambda: matmul(ab_off, bb)},
+        *bound16, smi)
     bound = _bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n, F32_FLOPS)
-    ms = _timed(f"matmul ({m},{k})x({k},{n}) f32", {
+    ms = _timed(f"matmul ({m},{k})x({k},{n}) f32 (route pipelined; simt_ms: the SIMT kernel)", {
         "ms": lambda: matmul(a, b), "plain_ms": lambda: ref.matmul_ref(a, b),
-        "library_ms": lambda: torch.matmul(a, b)}, *bound, smi)
-    return _record("matmul", "matmul.cu", "src/repro/kernels/matmul.py:46", worst, ms, bound)
+        "library_ms": lambda: torch.matmul(a, b), "simt_ms": lambda: matmul(a_off, b)},
+        *bound, smi)
+    for mm_, kk, nn in SHAPES["matmul"]:
+        x = torch.randn((mm_, kk), generator=gen, device="cuda")
+        y = torch.randn((kk, nn), generator=gen, device="cuda")
+        x_off = _off_alignment(x)
+        print(f"[kernel] matmul ({mm_},{kk})x({kk},{nn}) f32 device ms: "
+              f"pipelined={_device_ms(lambda: matmul(x, y)):.5f} "
+              f"simt={_device_ms(lambda: matmul(x_off, y)):.5f} ({smi})")
+    x = torch.randn((128, 128), generator=gen, device="cuda").bfloat16()
+    x_off = _off_alignment(x)
+    _issue_abba("matmul (128,128)x(128,128) bf16 (wgmma encodes 2 TMA maps a call)",
+                lambda: matmul(x, x), lambda: matmul(x_off, x), smi)
+    return [_record("matmul", "matmul.cu", "src/repro/kernels/matmul.py:46",
+                    worst[torch.float32], ms, bound, dtype="float32", path="pipelined"),
+            _record("matmul_bf16", "matmul_wgmma.cu", "src/repro/kernels/matmul.py:46",
+                    worst[torch.bfloat16], ms16, bound16, dtype="bfloat16", path="wgmma")]
 
 
 def check_configured_matmul(smi: str) -> dict:
@@ -286,10 +383,12 @@ def check_configured_matmul(smi: str) -> dict:
                    ms, bound)
 
 
-def check_flash_attention(smi: str) -> dict:
+def check_flash_attention(smi: str) -> list[dict]:
     """3e-2 (test_flash_attention_matches_oracle's) at qwen2-0.5b's 14 heads
     of 64, causal and full, f32 and bf16; at the decode shape against 256
-    keys; at the calibration ladder's shapes; and at ragged Sq, Sk, D."""
+    keys; causal Sq < Sk; at the calibration ladder's shapes; at D = 40 and
+    128; and on the SIMT route (D = 36, and off 16-byte alignment). The
+    qwen-width bf16 call must take the wgmma route."""
     import torch.nn.functional as F
 
     from repro_torch.engine.calibrate import SHAPES
@@ -298,39 +397,60 @@ def check_flash_attention(smi: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [((1, 14, 512, 64),) * 2, ((2, 4, 1, 64), (2, 4, 256, 64)),
-             ((1, 2, 100, 128), (1, 2, 300, 128)), ((1, 2, 33, 40), (1, 2, 65, 40))]
+             ((1, 2, 128, 64), (1, 2, 256, 64)), ((1, 2, 100, 128), (1, 2, 300, 128)),
+             ((1, 2, 33, 40), (1, 2, 65, 40)), ((1, 2, 200, 40),) * 2, ((1, 2, 33, 36),) * 2]
     cases += [((1, 1, s, d),) * 2 for s, d, _ in SHAPES["flash_attention"]]
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for qs, ks in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda") for s in (qs, ks, ks))
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                args = (q.to(dtype), k.to(dtype), v.to(dtype))
-                got = flash_attention(*args, causal=causal)
-                want = ref.flash_attention_ref(*args, causal=causal)
-                torch.cuda.synchronize()
-                err = _max_err(got, want)
-                worst = max(worst, err)
-                print(f"[kernel] flash_attention q{qs} k{ks} {dtype} causal={causal}: "
-                      f"max_abs_err={err:.6g}")
-                torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+                for off in (False, True) if dtype == torch.bfloat16 else (False,):
+                    args = (_off_alignment(q.to(dtype)) if off else q.to(dtype), k.to(dtype),
+                            v.to(dtype))
+                    got, route = _routed(flash_attention,
+                                         lambda: flash_attention(*args, causal=causal))
+                    want = ref.flash_attention_ref(*args, causal=causal)
+                    torch.cuda.synchronize()
+                    err = _max_err(got, want)
+                    worst[dtype] = max(worst[dtype], err)
+                    print(f"[kernel] flash_attention q{qs} k{ks} {dtype} causal={causal}"
+                          f"{' off-aligned' if off else ''}: route={route} max_abs_err={err:.6g}")
+                    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+                    if (qs, dtype, off) == ((1, 14, 512, 64), torch.bfloat16, False) \
+                            and route != "wgmma":
+                        raise SystemExit(f"the qwen-width bf16 flash_attention took route "
+                                         f"{route}, not wgmma")
     b, h, s, d = 1, 14, 512, 64
     q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda") for _ in range(3))
     pairs = b * h * s * (s + 1) // 2  # (query, key) pairs the causal mask keeps
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    _timed(f"flash_attention ({b},{h},{s},{d}) bf16 causal", {
-        "ms": lambda: flash_attention(qb, kb, vb, causal=True),
-        "plain_ms": lambda: ref.flash_attention_ref(qb, kb, vb, causal=True),
-        "library_ms": lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)},
-        *_bound_ms(2 * 4 * b * h * s * d, 4 * d * pairs, BF16_FLOPS), smi)
+    qb_off = _off_alignment(qb)
+    bound16 = _bound_ms(2 * 4 * b * h * s * d, 4 * d * pairs, BF16_FLOPS)
+    ms16 = _timed(f"flash_attention ({b},{h},{s},{d}) bf16 causal (route wgmma; "
+                  f"simt_ms: the SIMT kernel)", {
+                      "ms": lambda: flash_attention(qb, kb, vb, causal=True),
+                      "plain_ms": lambda: ref.flash_attention_ref(qb, kb, vb, causal=True),
+                      "library_ms": lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                                           is_causal=True),
+                      "simt_ms": lambda: flash_attention(qb_off, kb, vb, causal=True)},
+                  *bound16, smi)
     bound = _bound_ms(4 * 4 * b * h * s * d, 4 * d * pairs, F32_FLOPS)
-    ms = _timed(f"flash_attention ({b},{h},{s},{d}) f32 causal", {
+    ms = _timed(f"flash_attention ({b},{h},{s},{d}) f32 causal (route simt)", {
         "ms": lambda: flash_attention(q, k, v, causal=True),
         "plain_ms": lambda: ref.flash_attention_ref(q, k, v, causal=True),
         "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)},
         *bound, smi)
-    return _record("flash_attention", "flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:69", worst, ms, bound)
+    q1 = torch.randn((1, 1, 128, 64), generator=gen, device="cuda").bfloat16()
+    q1_off = _off_alignment(q1)
+    _issue_abba("flash_attention (1,1,128,64) bf16 causal (wgmma encodes 3 TMA maps a call)",
+                lambda: flash_attention(q1, q1, q1), lambda: flash_attention(q1_off, q1, q1), smi)
+    return [_record("flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:69", worst[torch.float32], ms, bound,
+                    dtype="float32", path="simt"),
+            _record("flash_attention_bf16", "flash_attention_wgmma.cu",
+                    "src/repro/kernels/flash_attention.py:69", worst[torch.bfloat16], ms16,
+                    bound16, dtype="bfloat16", path="wgmma")]
 
 
 def check_top_k(smi: str) -> dict:
@@ -461,15 +581,21 @@ def phase_calibrate(smi: str) -> dict:
     repeats = 3
     for wrapper in counted.values():
         wrapper.launches = 0
+    matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     t0 = time.perf_counter()
     fits, samples = run_calibration(device="cuda", repeats=repeats)
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in counted.items()}
-    print(f"[calibrate] full ladder in {wall:.2f} s; launches={launches}")
+    print(f"[calibrate] full ladder in {wall:.2f} s; launches={launches}; by route: "
+          f"matmul {matmul.launches_by_route}, flash_attention "
+          f"{flash_attention.launches_by_route}")
     for kernel, n in launches.items():
         want = (1 + repeats) * len(SHAPES[kernel])
         if n != want:
             raise SystemExit(f"calibration launched {kernel} {n} times, not {want}")
+    if matmul.launches_by_route["pipelined"] != launches["matmul"]:
+        raise SystemExit("the calibration's f32 matmul did not all take the pipelined route")
     for kernel in sorted(samples):
         fit = fits[kernel]
         print(f"[calibrate] {kernel}: overhead_factor={fit.overhead_factor!r} "
@@ -488,9 +614,12 @@ def phase_calibrate(smi: str) -> dict:
 def phase_ops_path(model, params) -> dict:
     """``configured_matmul`` and ``top_k`` through ``kernels.ops``, their
     only entry point: an int8 product with zero points at qwen2-0.5b's MLP
-    width, and the top 8 of the served model's last-position logits."""
+    width, and the top 8 of the served model's last-position logits; and
+    the two bf16 routes no other path runs, ``matmul_op`` at the MLP width
+    and causal ``attention_op`` at (1, 14, 512, 64), on the wgmma route."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.matmul import configured_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import configured_matmul, matmul
     from repro_torch.kernels.sampling import top_k
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -500,25 +629,42 @@ def phase_ops_path(model, params) -> dict:
     a = torch.randint(-128, 128, (QWEN_M, QWEN_D), generator=gen, device="cuda").to(torch.int8)
     b = torch.randint(-128, 128, (QWEN_D, QWEN_FF), generator=gen, device="cuda").to(torch.int8)
     zero_points = torch.tensor([-8, 8], dtype=torch.int32)  # on the host: launch parameters
+    x = torch.randn((QWEN_M, QWEN_D), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((QWEN_D, QWEN_FF), generator=gen, device="cuda").bfloat16()
+    q, k, v = (torch.randn((1, 14, 512, 64), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
     torch.cuda.synchronize()
     configured_matmul.launches = top_k.launches = 0
+    matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     vals, ids = ops.top_k_op(last, 8)
     c = ops.configured_matmul_op(a, b, zero_points)
+    y = ops.matmul_op(x, w)
+    o = ops.attention_op(q, k, v, causal=True)
     torch.cuda.synchronize()
-    launches = {"configured_matmul": configured_matmul.launches, "top_k": top_k.launches}
-    print(f"[ops] top_k_op on {tuple(last.shape)} {last.dtype} logits, k=8, and "
-          f"configured_matmul_op ({QWEN_M},{QWEN_D})x({QWEN_D},{QWEN_FF}) int8 zp=(-8, 8): "
-          f"launches={launches}")
-    if launches != {"configured_matmul": 1, "top_k": 1}:
-        raise SystemExit("the ops path did not launch configured_matmul and top_k once each")
+    launches = {"configured_matmul": configured_matmul.launches, "top_k": top_k.launches,
+                "matmul_bf16": matmul.launches_by_route["wgmma"],
+                "flash_attention_bf16": flash_attention.launches_by_route["wgmma"]}
+    print(f"[ops] top_k_op on {tuple(last.shape)} {last.dtype} logits, k=8, "
+          f"configured_matmul_op ({QWEN_M},{QWEN_D})x({QWEN_D},{QWEN_FF}) int8 zp=(-8, 8), "
+          f"matmul_op bf16 at that width and attention_op bf16 (1,14,512,64) causal: "
+          f"launches={launches}; by route: matmul {matmul.launches_by_route}, "
+          f"flash_attention {flash_attention.launches_by_route}")
+    if set(launches.values()) != {1} or sum(matmul.launches_by_route.values()) != 1 \
+            or sum(flash_attention.launches_by_route.values()) != 1:
+        raise SystemExit("the ops path did not launch each kernel once, bf16 on the wgmma route")
     want_v, want_i = ref.top_k_ref(last, 8)
     torch.testing.assert_close(ids, want_i, rtol=0, atol=0)
     torch.testing.assert_close(vals, want_v, rtol=0, atol=0)
     torch.testing.assert_close(ids[:, 0], ref.greedy_sample_ref(last), rtol=0, atol=0)
     torch.testing.assert_close(c, ref.configured_matmul_ref(a, b, -8, 8), rtol=0, atol=0)
+    torch.testing.assert_close(y, ref.matmul_ref(x, w), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(o, ref.flash_attention_ref(q, k, v, causal=True), rtol=3e-2,
+                               atol=3e-2)
     print(f"[ops] top-8 ids of row 0: {ids[0].tolist()}; configured_matmul output "
           f"{tuple(c.shape)} finite={bool(torch.isfinite(c).all())}, exact against its "
-          f"plain version")
+          f"plain version; matmul {tuple(y.shape)} and attention {tuple(o.shape)} outputs "
+          f"within 2e-2 and 3e-2 of theirs")
     return launches
 
 
@@ -540,7 +686,7 @@ def main() -> None:
     print(f"[model] qwen2-0.5b full width, seeded: {n_params} parameters")
     launches = phase_main_path(model, params)
     phase_numerics(model, params)
-    records += [check_matmul(smi), check_configured_matmul(smi), check_flash_attention(smi),
+    records += [*check_matmul(smi), check_configured_matmul(smi), *check_flash_attention(smi),
                 check_top_k(smi)]
     calibration = phase_calibrate(smi)
     launches["matmul"] = calibration["matmul"]

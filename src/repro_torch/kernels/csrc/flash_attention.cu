@@ -35,16 +35,15 @@
 //     keeps its sums at zero instead of taking exp(-inf - -inf).
 //   * Causal blocks stop at the last key their last row can see.
 //   * D <= 128. For D > 64 the tile needs 82 KB of shared memory, which is
-//     above the 48 KB default, so the kernel asks for it once with
-//     cudaFuncSetAttribute.
-// Not yet used: tensor cores (wgmma), TMA, and sharing the K/V tile across
-// more query rows. Those are the redesign, not the port.
+//     above the 48 KB default, so the kernel asks for it with
+//     cudaFuncSetAttribute, once on each device.
+// This is the "simt" route of kernels/flash_attention.py: every f32 call,
+// and bf16 calls that TMA cannot describe (D % 8 != 0 or a pointer off 16
+// bytes). Other bf16 calls run on the tensor cores, flash_attention_wgmma.cu.
 
 #include <cmath>
-#include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -201,13 +200,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
            int causal, void* stream) {
   constexpr size_t kSmem = smem_bytes<DMAX>();
   if (kSmem > 48 * 1024) {
-    static bool raised = false;  // once per instantiation
-    if (!raised) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          flash_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      raised = true;
-    }
+    static std::atomic<uint64_t> raised{0};
+    const int err = hopper_host::allow_smem(flash_kernel<T, DMAX>, static_cast<int>(kSmem), raised);
+    if (err) return err;
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));

@@ -1,16 +1,20 @@
 """Flash attention: the port of the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``.
 
-On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
-kernel ``csrc/flash_attention.cu``; on a CPU tensor it runs the plain
-version ``ref.flash_attention_ref``. There is no other route.
+On a CUDA tensor :func:`flash_attention` launches a hand-written Hopper
+kernel, by the route :func:`attention_route` chooses and
+``flash_attention.launches_by_route`` counts: ``"wgmma"``
+(``csrc/flash_attention_wgmma.cu``, bf16 on the tensor cores) or
+``"simt"`` (``csrc/flash_attention.cu``, f32 FMA). On a CPU tensor it runs
+the plain version ``ref.flash_attention_ref``. There is no other route.
 
 The causal mask is bottom-right aligned (query row i sees keys
 ``j <= i + Sk - Sq``), as the JAX package's plain reference masks; its
 Pallas kernel masks top-left, and the two differ when ``Sq != Sk``
 (ROADMAP Queue 3). Causal attention with ``Sq > Sk`` is refused: its first
 rows see no key, the reference gives NaN there and the Pallas kernel
-another number.
+another number. The wgmma route rounds the probabilities to bf16 before
+they multiply v, as tensor-core flash kernels do (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -24,14 +28,37 @@ from . import _build
 from .ref import flash_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-D_MAX = 128  # the kernel keeps D / 32 accumulator columns per lane, up to 4
+D_MAX = 128  # simt: D / 32 accumulator columns per lane, up to 4; wgmma: D padded to 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+ROUTES = ("wgmma", "simt")
+
+
+def attention_route(dtype: torch.dtype, d: int, ptrs) -> str:
+    """The kernel of one ``flash_attention`` call with head width ``d`` and
+    q, k, v, out at addresses ``ptrs``. A pure function, so the rule is
+    tested on the CPU. bf16 takes ``"wgmma"`` where TMA can describe the
+    tensors: ``d`` a multiple of 8 (16-byte rows) and every address 16-byte
+    aligned. Everything else, float32 included, takes ``"simt"``. An
+    explicit route, not a fallback: a failed build or launch raises."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _wgmma_launcher():
+    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_launch
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -71,8 +98,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention of q (B, H, Sq, D) over k, v (B, H, Sk, D), scale
     ``1/sqrt(D)``, in ``q.dtype`` (float32 or bfloat16), with float32
-    running max, normaliser and accumulator. ``flash_attention.launches``
-    counts the kernel's launches."""
+    running max, normaliser and accumulator, through the route
+    :func:`attention_route` chooses. ``flash_attention.launches`` counts the
+    kernels' launches and ``flash_attention.launches_by_route`` the
+    launches of each route."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
@@ -83,12 +112,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if b * h == 0 or sq == 0:
         return out
-    _build.check(_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-                             sq, k.shape[2], d, int(causal), _DTYPE_CODES[q.dtype],
-                             torch.cuda.current_stream(q.device).cuda_stream),
-                 "flash_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    route = attention_route(q.dtype, d, ptrs)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        err = _wgmma_launcher()(*ptrs, b * h, sq, k.shape[2], d, int(causal), stream)
+    else:
+        err = _launcher()(*ptrs, b * h, sq, k.shape[2], d, int(causal), _DTYPE_CODES[q.dtype],
+                          stream)
+    _build.check(err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,18 +1,28 @@
 """Blocked matrix products: :func:`matmul` and :func:`configured_matmul`.
 
 Ports of the Pallas kernels ``repro/kernels/matmul.py::matmul`` and
-``::configured_matmul``. Both launch one hand-written Hopper kernel,
-``csrc/matmul.cu``, through its two C entry points. On a CPU tensor each
-wrapper runs its plain version (``ref.matmul_ref``,
-``ref.configured_matmul_ref``); on a CUDA tensor it launches the kernel or
-raises. Unlike the Pallas kernels, neither needs its dimensions to be
-multiples of a block: the kernel masks the ragged edges.
+``::configured_matmul``. On a CPU tensor each wrapper runs its plain
+version (``ref.matmul_ref``, ``ref.configured_matmul_ref``); on a CUDA
+tensor it launches a hand-written Hopper kernel or raises. Unlike the
+Pallas kernels, neither needs its dimensions to be multiples of a block:
+the kernels mask the ragged edges.
 
-``configured_matmul``'s zero points are the paper's configuration
-registers. The Pallas kernel brings them in by scalar prefetch; here they
-are the kernel's by-value launch parameters, so the wrapper needs them on
-the host: a pair of ints or a ``(2,)`` int32 CPU tensor. A CUDA tensor is
-refused, because reading it on the host would synchronise with the device.
+``matmul`` takes one of three routes, chosen by :func:`plan_matmul` from
+the type, the shape and the operands' alignment, and counted in
+``matmul.launches_by_route``:
+
+* ``"wgmma"`` (``csrc/matmul_wgmma.cu``): bf16 on the tensor cores, fed by
+  TMA through an mbarrier ring;
+* ``"pipelined"`` (``csrc/matmul.cu::sgemm_pipelined``): f32 FMA through a
+  cp.async ring, with the tile chosen to fill the card;
+* ``"simt"`` (``csrc/matmul.cu::gemm_kernel``): any shape, f32 or bf16.
+
+``configured_matmul`` always runs ``gemm_kernel``. Its zero points are the
+paper's configuration registers. The Pallas kernel brings them in by scalar
+prefetch; here they are the kernel's by-value launch parameters, so the
+wrapper needs them on the host: a pair of ints or a ``(2,)`` int32 CPU
+tensor. A CUDA tensor is refused, because reading it on the host would
+synchronise with the device.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
+from dataclasses import dataclass
 
 import torch
 
@@ -28,8 +39,61 @@ from .ref import configured_matmul_ref, matmul_ref
 
 _MATMUL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CONFIGURED_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_BLOCK_M = 128  # rows of C per block; the grid's y extent is at most 65535
+_BLOCK_M = 128  # rows of C per block of the simt kernel; its grid's y extent is at most 65535
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+ROUTES = ("wgmma", "pipelined", "simt")
+H100_SMS = 132
+PIPELINED_TILES = (128, 64, 32)  # square f32 tiles, largest first
+WGMMA_BLOCK_M = 128
+WGMMA_BLOCK_NS = (128, 192)  # multiples of 64: the swizzle atom of an N-contiguous B
+
+
+@dataclass(frozen=True)
+class MatmulPlan:
+    route: str
+    block_m: int  # rows of C per block
+    block_n: int  # columns of C per block
+
+
+def _blocks(m: int, n: int, bm: int, bn: int) -> int:
+    return -(-m // bm) * -(-n // bn)
+
+
+def plan_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs, sms: int = H100_SMS
+                ) -> MatmulPlan:
+    """The kernel and tile of one ``matmul`` of ``(m, k)·(k, n)`` with A and B
+    at addresses ``ptrs``, on a card of ``sms`` SMs. A pure function, so the
+    rule is tested on the CPU.
+
+    * bf16 takes ``"wgmma"`` where TMA can describe both operands: K and N
+      multiples of 8 (16-byte row strides), K > 0 and both addresses 16-byte
+      aligned. Its tile is 128 rows by the ``WGMMA_BLOCK_NS`` width with the
+      least ``ceil(blocks / sms) · width``: the time of the last wave of
+      tiles, so a second, nearly empty wave is avoided.
+    * f32 takes ``"pipelined"`` where its 16-byte copies can: K and N
+      multiples of 4, K > 0, both addresses 16-byte aligned. Its tile is the
+      largest of ``PIPELINED_TILES`` whose grid covers the SMs, else the
+      smallest.
+    * Everything else takes ``"simt"``, 128 x 128 tiles.
+
+    This is an explicit route, not a fallback: whichever kernel is chosen,
+    a failed build or launch raises."""
+    aligned = k > 0 and all(p % 16 == 0 for p in ptrs)
+    if dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0:
+        width = min(WGMMA_BLOCK_NS, key=lambda bn: (
+            -(-_blocks(m, n, WGMMA_BLOCK_M, bn) // sms) * bn, bn))
+        return MatmulPlan("wgmma", WGMMA_BLOCK_M, width)
+    if dtype == torch.float32 and aligned and k % 4 == 0 and n % 4 == 0:
+        tile = next((t for t in PIPELINED_TILES if _blocks(m, n, t, t) >= sms),
+                    PIPELINED_TILES[-1])
+        return MatmulPlan("pipelined", tile, tile)
+    return MatmulPlan("simt", _BLOCK_M, _BLOCK_M)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -37,9 +101,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul")
     lib.matmul_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.matmul_launch.restype = _I
+    lib.matmul_pipelined_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.matmul_pipelined_launch.restype = _I
     lib.configured_matmul_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.configured_matmul_launch.restype = _I
     return lib
+
+
+@functools.cache
+def _wgmma_launcher():
+    fn = _build.load("matmul_wgmma").matmul_wgmma_launch
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor, dtypes) -> None:
@@ -62,7 +136,9 @@ def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor, dtypes) -> None
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(M, K)·(K, N)`` summed in float32, in ``a.dtype`` (float32 or
-    bfloat16). ``matmul.launches`` counts the kernel's launches."""
+    bfloat16), through the route :func:`plan_matmul` chooses.
+    ``matmul.launches`` counts the kernels' launches and
+    ``matmul.launches_by_route`` the launches of each route."""
     _check_operands("matmul", a, b, _MATMUL_DTYPES)
     if a.device.type == "cpu":
         return matmul_ref(a, b)
@@ -73,14 +149,23 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    _build.check(_lib().matmul_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                                      _MATMUL_DTYPES[a.dtype],
-                                      torch.cuda.current_stream(a.device).cuda_stream), "matmul")
+    plan = plan_matmul(a.dtype, m, k, n, (a.data_ptr(), b.data_ptr()), _sms(a.get_device()))
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if plan.route == "wgmma":
+        err = _wgmma_launcher()(*ptrs, plan.block_n, stream)
+    elif plan.route == "pipelined":
+        err = _lib().matmul_pipelined_launch(*ptrs, plan.block_m, stream)
+    else:
+        err = _lib().matmul_launch(*ptrs, _MATMUL_DTYPES[a.dtype], stream)
+    _build.check(err, f"matmul ({plan.route})")
     matmul.launches += 1
+    matmul.launches_by_route[plan.route] += 1
     return out
 
 
 matmul.launches = 0
+matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _zero_points(zero_points) -> tuple[int, int]:

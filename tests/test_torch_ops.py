@@ -406,3 +406,91 @@ def test_cuda_top_k_matches_plain_version_exactly():
                 want_v, want_i = ref.top_k_ref(x.to(dtype), k)
                 torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
                 torch.testing.assert_close(got_v, want_v, rtol=0, atol=0, equal_nan=True)
+
+
+def _off_alignment(x: torch.Tensor) -> torch.Tensor:
+    """The same values, contiguous, one element past a 16-byte boundary:
+    an address that neither TMA nor the 16-byte copies take."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _routed(wrapper, route: str, fn):
+    before = dict(wrapper.launches_by_route)
+    out = _launched(wrapper, fn)
+    assert wrapper.launches_by_route[route] == before[route] + 1, wrapper.launches_by_route
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, shape, off, route", [
+    ("bfloat16", (512, 896, 4864), False, "wgmma"),
+    ("bfloat16", (130, 72, 200), False, "wgmma"),
+    ("bfloat16", (130, 70, 33), False, "simt"),
+    ("bfloat16", (128, 128, 128), True, "simt"),
+    ("float32", (512, 896, 4864), False, "pipelined"),
+    ("float32", (384, 256, 384), False, "pipelined"),
+    ("float32", (130, 72, 36), False, "pipelined"),
+    ("float32", (130, 70, 33), False, "simt"),
+    ("float32", (128, 128, 128), True, "simt"),
+])
+def test_cuda_matmul_each_route_matches_plain_version(dtype, shape, off, route):
+    _cuda()
+    m, k, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, dtype)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+    if off:
+        a = _off_alignment(a)
+    got = _routed(matmul, route, lambda: matmul(a, b))
+    tol = dict(rtol=1e-4, atol=1e-3) if dt == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got, ref.matmul_ref(a, b), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 896, 4864), (128, 128, 128), (130, 72, 200), (5, 8, 8)])
+def test_cuda_matmul_bf16_position_coded_product_is_exact(shape):
+    """A selects one row of B per row of C (0/1 entries) and B holds small
+    integers, exact in bf16, coding (k % 16, n % 16): every C[i, j] must be
+    B[sel(i), j] exactly, so a wrong shared-memory layout shows which row or
+    column went astray."""
+    _cuda()
+    m, k, n = shape
+    sel = (torch.arange(m, device="cuda") * 7 + 3) % k
+    a = torch.zeros((m, k), device="cuda")
+    a[torch.arange(m, device="cuda"), sel] = 1
+    b = (torch.arange(k, device="cuda")[:, None] % 16 * 16
+         + torch.arange(n, device="cuda")[None, :] % 16).float()
+    a, b = a.bfloat16(), b.bfloat16()
+    got = _routed(matmul, "wgmma", lambda: matmul(a, b))
+    torch.testing.assert_close(got, b[sel], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, q_shape, k_shape, causal, off, route", [
+    ("bfloat16", (1, 2, 200, 40), (1, 2, 200, 40), True, False, "wgmma"),
+    ("bfloat16", (1, 14, 512, 64), (1, 14, 512, 64), True, False, "wgmma"),
+    ("bfloat16", (1, 2, 100, 128), (1, 2, 300, 128), False, False, "wgmma"),
+    ("bfloat16", (1, 2, 130, 128), (1, 2, 130, 128), True, False, "wgmma"),
+    ("bfloat16", (2, 4, 1, 64), (2, 4, 256, 64), True, False, "wgmma"),  # decode
+    ("bfloat16", (2, 4, 1, 64), (2, 4, 256, 64), False, False, "wgmma"),
+    ("bfloat16", (1, 2, 128, 64), (1, 2, 256, 64), True, False, "wgmma"),  # causal Sq < Sk
+    ("bfloat16", (1, 2, 33, 36), (1, 2, 65, 36), True, False, "simt"),
+    ("bfloat16", (1, 2, 64, 64), (1, 2, 64, 64), True, True, "simt"),
+    ("float32", (1, 2, 128, 64), (1, 2, 256, 64), True, False, "simt"),
+])
+def test_cuda_flash_attention_each_route_matches_plain_version(dtype, q_shape, k_shape, causal,
+                                                               off, route):
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in (q_shape, k_shape, k_shape))
+    if off:
+        q = _off_alignment(q)
+    got = _routed(flash_attention, route, lambda: flash_attention(q, k, v, causal=causal))
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal),
+                               rtol=3e-2, atol=3e-2)
