@@ -28,6 +28,15 @@ Phases, each printing its results; any failure exits non-zero:
    counters), are checked on every route, and must take wgmma for bf16 at
    qwen2-0.5b's widths; a position-coded bf16 product must come out
    exactly. Their SIMT kernels are timed beside the new routes.
+   configured_matmul prints its route (wgmma for aligned int8, simt
+   otherwise), must take wgmma for int8 at qwen2-0.5b's width, must give a
+   position-coded int8 product exactly, and must equal the float64 answer
+   exactly at K = 4096 with full-range zero points; it is timed beside
+   torch.matmul on centred f32 operands and torch._int_mm. top_k prints the
+   number of blocks each row is split into, is checked at B = 1, 4 and 64,
+   on ties and NaNs across chunk boundaries and on a row off 16-byte
+   alignment, and is timed at k = 1, 8 and 64, by device time alone at
+   k = 2 to 32, and at B = 1 and 64 beside torch.topk.
 7. Calibration path: ``repro_torch.engine.calibrate.run_calibration`` over
    the full shape ladder on the card, each fit and sample printed beside the
    sample's device time, with the matmul, flash_attention and greedy_sample
@@ -37,7 +46,8 @@ Phases, each printing its results; any failure exits non-zero:
    model's last-position logits, the only entry points of those two
    kernels, and ``matmul_op`` and ``attention_op`` in bf16 at qwen2-0.5b's
    widths (the wgmma routes, which the calibration's f32 does not run),
-   with their launch counts read just after.
+   with their launch counts read just after; the int8 product must take
+   configured_matmul's wgmma route.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -347,40 +357,99 @@ def check_matmul(smi: str) -> list[dict]:
                     worst[torch.bfloat16], ms16, bound16, dtype="bfloat16", path="wgmma")]
 
 
+def _position_coded_int8(m: int, n: int) -> tuple:
+    """int8 operands whose product is known exactly: A (m, 128) has one 1 a
+    row, at column i % 128 (the identity, stacked), and B (128, n) holds
+    16 (k mod 16) + (n mod 16) - 128. Every C[i, j] must equal
+    B[i % 128, j], and a wrong value names the row and column of B it came
+    from."""
+    sel = torch.arange(m, device="cuda") % 128
+    a = torch.zeros((m, 128), dtype=torch.int8, device="cuda")
+    a[torch.arange(m, device="cuda"), sel] = 1
+    b = (torch.arange(128, device="cuda")[:, None] % 16 * 16
+         + torch.arange(n, device="cuda")[None, :] % 16 - 128).to(torch.int8)
+    return a, b, sel
+
+
 def check_configured_matmul(smi: str) -> dict:
     """Integer-valued operands with zero points in [-8, 8]: every sum is an
-    integer below 2**24, so the kernel must equal its plain version exactly."""
+    integer below 2**24, so each route must equal the plain version exactly;
+    int8 takes wgmma where aligned, simt one byte off (f32 and bf16 always
+    simt). The position-coded int8 product must come out exactly on wgmma,
+    and full-range int8 at K = 4096 with zero points (-128, 127), where the
+    f32 plain version is no longer exact, must equal the float64 answer."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.matmul import configured_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = 0.0
-    for m, k, n in [(128, 128, 128), (QWEN_M, QWEN_D, QWEN_FF), (70, 130, 33)]:
+    for m, k, n in [(128, 128, 128), (QWEN_M, QWEN_D, QWEN_FF), (70, 130, 33), (130, 144, 208)]:
         a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda")
         b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda")
         for dtype in (torch.int8, torch.float32, torch.bfloat16):
             for zp in ((-8, 8), (0, 0), (5, -3)):
-                x, y = a.to(dtype), b.to(dtype)
-                got, want = configured_matmul(x, y, zp), ref.configured_matmul_ref(x, y, *zp)
-                torch.cuda.synchronize()
-                err = _max_err(got, want)
-                worst = max(worst, err)
-                print(f"[kernel] configured_matmul ({m},{k})x({k},{n}) {dtype} zp={zp}: "
-                      f"max_abs_err={err}")
-                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                for off in (False, True) if dtype == torch.int8 else (False,):
+                    x, y = a.to(dtype), b.to(dtype)
+                    if off:
+                        x = _off_alignment(x)
+                    got, route = _routed(configured_matmul, lambda: configured_matmul(x, y, zp))
+                    want = ref.configured_matmul_ref(x, y, *zp)
+                    torch.cuda.synchronize()
+                    err = _max_err(got, want)
+                    worst = max(worst, err)
+                    print(f"[kernel] configured_matmul ({m},{k})x({k},{n}) {dtype} zp={zp}"
+                          f"{' off-aligned' if off else ''}: route={route} max_abs_err={err}")
+                    torch.testing.assert_close(got, want, rtol=0, atol=0)
+                    aligned_int8 = dtype == torch.int8 and not off and k % 16 == 0 \
+                        and n % 16 == 0
+                    if route != ("wgmma" if aligned_int8 else "simt"):
+                        raise SystemExit(f"configured_matmul took route {route} for {dtype}"
+                                         f"{' off-aligned' if off else ''} at ({m},{k},{n})")
+    for m, n in [(128, 128), (128, QWEN_FF), (QWEN_M, QWEN_FF)]:
+        a, b, sel = _position_coded_int8(m, n)
+        got, route = _routed(configured_matmul, lambda: configured_matmul(a, b, (0, 0)))
+        torch.cuda.synchronize()
+        wrong = (got != b[sel].float()).nonzero()
+        for i, j in wrong[:8].tolist():
+            v = int(got[i, j]) + 128
+            print(f"[kernel]   C[{i},{j}] = {int(got[i, j])}: from k % 16 = {v // 16}, "
+                  f"n % 16 = {v % 16}; wanted k % 16 = {int(sel[i]) % 16}, n % 16 = {j % 16}")
+        print(f"[kernel] configured_matmul position-coded ({m},128)x(128,{n}) int8: "
+              f"route={route} wrong={len(wrong)} of {m * n}")
+        if len(wrong) or route != "wgmma":
+            raise SystemExit("the position-coded int8 product is not exact on the wgmma route")
+    a = torch.randint(-128, 128, (128, 4096), generator=gen, device="cuda").to(torch.int8)
+    b = torch.randint(-128, 128, (4096, 128), generator=gen, device="cuda").to(torch.int8)
+    zp = (-128, 127)
+    got, route = _routed(configured_matmul, lambda: configured_matmul(a, b, zp))
+    exact = ((a.double() - zp[0]) @ (b.double() - zp[1])).float()
+    plain = ref.configured_matmul_ref(a, b, *zp)
+    torch.cuda.synchronize()
+    print(f"[kernel] configured_matmul (128,4096)x(4096,128) int8 zp={zp}: route={route} "
+          f"max_abs_err against float64={_max_err(got, exact)}, the f32 plain version's "
+          f"against float64={_max_err(plain, exact)}")
+    torch.testing.assert_close(got, exact, rtol=0, atol=0)
+    if route != "wgmma":
+        raise SystemExit(f"the K = 4096 int8 product took route {route}, not wgmma")
+
     m, k, n = QWEN_M, QWEN_D, QWEN_FF
     a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
     b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    a_off = _off_alignment(a)
     zp = (-8, 8)
     a_c, b_c = a.float() - zp[0], b.float() - zp[1]  # centred before the timed call
     bound = _bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS)
-    ms = _timed(f"configured_matmul ({m},{k})x({k},{n}) int8 zp={zp} "
-                f"(library: torch.matmul on f32 operands centred beforehand)", {
+    ms = _timed(f"configured_matmul ({m},{k})x({k},{n}) int8 zp={zp} (route wgmma; library: "
+                f"torch.matmul on f32 operands centred beforehand; int_mm_ms: torch._int_mm, "
+                f"int8 to int32 without zero points; simt_ms: the SIMT kernel, A one byte off)", {
                     "ms": lambda: configured_matmul(a, b, zp),
                     "plain_ms": lambda: ref.configured_matmul_ref(a, b, *zp),
-                    "library_ms": lambda: torch.matmul(a_c, b_c)}, *bound, smi)
-    return _record("configured_matmul", "matmul.cu", "src/repro/kernels/matmul.py:95", worst,
-                   ms, bound)
+                    "library_ms": lambda: torch.matmul(a_c, b_c),
+                    "int_mm_ms": lambda: torch._int_mm(a, b),
+                    "simt_ms": lambda: configured_matmul(a_off, b, zp)}, *bound, smi)
+    return _record("configured_matmul", "configured_matmul_wgmma.cu",
+                   "src/repro/kernels/matmul.py:95", worst, ms, bound, dtype="int8",
+                   path="wgmma", int_mm_ms=ms["int_mm_ms"], simt_ms=ms["simt_ms"])
 
 
 def check_flash_attention(smi: str) -> list[dict]:
@@ -453,36 +522,82 @@ def check_flash_attention(smi: str) -> list[dict]:
                     bound16, dtype="bfloat16", path="wgmma")]
 
 
+def _across_chunks(b: int, v: int, k: int) -> torch.Tensor:
+    """(b, v) rows of -1 whose ties and NaNs straddle every chunk boundary
+    that ``plan_top_k`` gives at that shape: row r takes pattern r % 4, a
+    tie of 6 across each boundary, a NaN on each side, +inf on both sides,
+    or zeros of both signs everywhere."""
+    from repro_torch.kernels.sampling import plan_top_k
+
+    x = torch.full((b, v), -1.0, device="cuda")
+    starts = [start for start, _ in plan_top_k(b, v, k).bounds(v)[1:]]
+    for r in range(b):
+        for start in starts:
+            if r % 4 == 0:
+                x[r, start - 3:start + 3] = 5.0
+            elif r % 4 == 1:
+                x[r, start - 1:start + 1] = float("nan")
+            elif r % 4 == 2:
+                x[r, start - 2:start + 2] = float("inf")
+        if r % 4 == 3:
+            x[r] = 0.0
+            x[r, ::7] = -0.0
+    return x
+
+
 def check_top_k(smi: str) -> dict:
-    """Exact ids and values at (4, V=151,936) with k in {1, 8, K_MAX}, on
-    rows with ties and NaN, in bf16, f32 and fp16."""
+    """Exact ids and values with k in {1, 8, K_MAX}, in bf16, f32 and fp16:
+    at (4, V=151,936) on random rows and rows with ties and NaN; at B = 1
+    and 64 (the two ends of plan_top_k's split); on ties and NaNs on both
+    sides of each chunk boundary; and on rows one element off 16-byte
+    alignment. Each case prints the blocks per row."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sampling import K_MAX, top_k
+    from repro_torch.kernels.sampling import K_MAX, plan_top_k, top_k
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = [torch.randn((4, QWEN_V), generator=gen, device="cuda"),
             torch.randint(-3, 3, (4, QWEN_V), generator=gen, device="cuda").float(),
-            _adversarial(QWEN_V, torch.float32), _adversarial(151, torch.float32)]
+            _adversarial(QWEN_V, torch.float32), _adversarial(151, torch.float32),
+            torch.randn((1, QWEN_V), generator=gen, device="cuda"),
+            torch.randn((64, QWEN_V), generator=gen, device="cuda"),
+            _across_chunks(4, QWEN_V, 8), _across_chunks(1, QWEN_V, 8),
+            _across_chunks(2, QWEN_V, K_MAX)]
     worst = 0
     for i, x in enumerate(rows):
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
             for k in (1, 8, K_MAX):
-                got_v, got_i = top_k(x.to(dtype), k)
-                want_v, want_i = ref.top_k_ref(x.to(dtype), k)
-                torch.cuda.synchronize()
-                err = int((got_i.long() - want_i.long()).abs().max())
-                worst = max(worst, err)
-                print(f"[kernel] top_k rows#{i} {tuple(x.shape)} {dtype} k={k}: "
-                      f"max_abs_err={err} (ids)")
-                torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
-                torch.testing.assert_close(got_v, want_v, rtol=0, atol=0, equal_nan=True)
+                for off in (False, True) if i in (0, 6) else (False,):
+                    y = _off_alignment(x.to(dtype)) if off else x.to(dtype)
+                    got_v, got_i = top_k(y, k)
+                    want_v, want_i = ref.top_k_ref(y, k)
+                    torch.cuda.synchronize()
+                    err = int((got_i.long() - want_i.long()).abs().max())
+                    worst = max(worst, err)
+                    print(f"[kernel] top_k rows#{i} {tuple(x.shape)} {dtype} k={k}"
+                          f"{' off-aligned' if off else ''}: blocks per row="
+                          f"{plan_top_k(*x.shape, k).splits} max_abs_err={err} (ids)")
+                    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+                    torch.testing.assert_close(got_v, want_v, rtol=0, atol=0, equal_nan=True)
     x = torch.randn((4, QWEN_V), generator=gen, device="cuda").to(torch.bfloat16)
-    k = 8
-    bound = _bound_ms(x.numel() * x.element_size() + x.shape[0] * k * 8, 0.0, 1.0)
-    ms = _timed(f"top_k B=4 V={QWEN_V} bf16 k={k}", {
-        "ms": lambda: top_k(x, k), "plain_ms": lambda: ref.top_k_ref(x, k),
-        "library_ms": lambda: torch.topk(x, k)}, *bound, smi)
-    return _record("top_k", "top_k.cu", "src/repro/kernels/sampling.py:98", worst, ms, bound)
+    timed = {}
+    for k in (1, 8, K_MAX):
+        bound = _bound_ms(x.numel() * x.element_size() + x.shape[0] * k * 8, 0.0, 1.0)
+        timed[k] = (_timed(f"top_k B=4 V={QWEN_V} bf16 k={k}, "
+                           f"{plan_top_k(4, QWEN_V, k).splits} blocks per row", {
+                               "ms": lambda: top_k(x, k), "plain_ms": lambda: ref.top_k_ref(x, k),
+                               "library_ms": lambda: torch.topk(x, k)}, *bound, smi), bound)
+    sweep = " ".join(f"k={k}:{_device_ms(lambda: top_k(x, k)):.5f}" for k in (2, 4, 16, 32))
+    print(f"[kernel] top_k B=4 V={QWEN_V} bf16, device ms by k (k <= 8 register lists, "
+          f"k > 8 radix select): {sweep} ({smi})")
+    for b in (1, 64):
+        y = torch.randn((b, QWEN_V), generator=gen, device="cuda").to(torch.bfloat16)
+        for k in (8, K_MAX):
+            print(f"[kernel] top_k B={b} V={QWEN_V} bf16 k={k}, {plan_top_k(b, QWEN_V, k).splits} "
+                  f"blocks per row, device ms: kernel_ms={_device_ms(lambda: top_k(y, k)):.5f} "
+                  f"library_ms={_device_ms(lambda: torch.topk(y, k)):.5f} ({smi})")
+    ms, bound = timed[8]
+    return _record("top_k", "top_k.cu", "src/repro/kernels/sampling.py:98", worst, ms, bound,
+                   k=8, ms_k1=timed[1][0]["ms"], ms_k64=timed[K_MAX][0]["ms"])
 
 
 def _requests(cfg) -> list[tuple[int, list[int]]]:
@@ -635,6 +750,7 @@ def phase_ops_path(model, params) -> dict:
                for _ in range(3))
     torch.cuda.synchronize()
     configured_matmul.launches = top_k.launches = 0
+    configured_matmul.launches_by_route = dict.fromkeys(configured_matmul.launches_by_route, 0)
     matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     vals, ids = ops.top_k_op(last, 8)
@@ -648,11 +764,14 @@ def phase_ops_path(model, params) -> dict:
     print(f"[ops] top_k_op on {tuple(last.shape)} {last.dtype} logits, k=8, "
           f"configured_matmul_op ({QWEN_M},{QWEN_D})x({QWEN_D},{QWEN_FF}) int8 zp=(-8, 8), "
           f"matmul_op bf16 at that width and attention_op bf16 (1,14,512,64) causal: "
-          f"launches={launches}; by route: matmul {matmul.launches_by_route}, "
+          f"launches={launches}; by route: configured_matmul "
+          f"{configured_matmul.launches_by_route}, matmul {matmul.launches_by_route}, "
           f"flash_attention {flash_attention.launches_by_route}")
     if set(launches.values()) != {1} or sum(matmul.launches_by_route.values()) != 1 \
             or sum(flash_attention.launches_by_route.values()) != 1:
         raise SystemExit("the ops path did not launch each kernel once, bf16 on the wgmma route")
+    if configured_matmul.launches_by_route != {"wgmma": 1, "simt": 0}:
+        raise SystemExit("the ops path's int8 configured_matmul did not take the wgmma route")
     want_v, want_i = ref.top_k_ref(last, 8)
     torch.testing.assert_close(ids, want_i, rtol=0, atol=0)
     torch.testing.assert_close(vals, want_v, rtol=0, atol=0)

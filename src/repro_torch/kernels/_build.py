@@ -9,6 +9,8 @@ minutes.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and so
 does a launch whose C entry point returns a CUDA error (:func:`check`).
+:func:`sm_count` gives the card's SM count, by which the wrappers' plans
+size their grids.
 """
 
 from __future__ import annotations
@@ -20,10 +22,14 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from functools import cache
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
+H100_SMS = 132  # the plans' default card
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,3 +94,9 @@ def check(err: int, kernel: str) -> None:
     runs, and no later synchronisation would report it."""
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+@cache
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

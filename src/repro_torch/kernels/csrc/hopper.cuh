@@ -1,12 +1,14 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (matmul_wgmma.cu, flash_attention_wgmma.cu): mbarriers, TMA loads,
-// wgmma shared-memory descriptors and the wgmma instructions themselves,
-// plus two host helpers (the TMA map encoder, reached through
+// (matmul_wgmma.cu, configured_matmul_wgmma.cu, flash_attention_wgmma.cu):
+// mbarriers, TMA loads, wgmma shared-memory descriptors and the wgmma
+// instructions themselves (bf16 with f32 sums, s8 with s32 sums), plus two
+// host helpers (the TMA map encoder, reached through
 // cudaGetDriverEntryPoint so no -lcuda is needed, and a once-per-device raise of
 // a kernel's dynamic shared-memory limit). All shared-memory tiles here use
 // the 128-byte swizzle that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-// a tile is stored as slabs 64 bf16 wide, each row of a slab 128 bytes, and
-// every 8 rows (1024 bytes) one swizzle atom.
+// a tile is stored as slabs 128 bytes wide (64 bf16 or 128 int8), each row
+// of a slab 128 bytes, and every 8 rows (1024 bytes) one swizzle atom: the
+// 16-byte chunk c of row r of an atom lies at chunk c ^ (r % 8).
 #pragma once
 
 #include <atomic>
@@ -97,9 +99,9 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled operand. For a
-// K-major operand (K contiguous) the start steps 32 bytes per k16 inside
-// the 128-byte row, lbo is unused (16) and sbo is the 1024 bytes from one
-// 8-row group to the next. For an MN-major operand (M or N contiguous,
+// K-major operand (K contiguous) the start steps 32 bytes per wgmma k-step
+// (k16 in bf16, k32 in int8) inside the 128-byte row, lbo is unused (16)
+// and sbo is the 1024 bytes from one 8-row group to the next. For an MN-major operand (M or N contiguous,
 // taken with the transpose immediate) the start steps 16 rows (2048 bytes)
 // per k16, lbo is the stride from one 64-wide slab to the next and sbo
 // again the 1024 bytes between 8-row groups along K.
@@ -126,6 +128,23 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Order this thread's plain shared-memory stores before later reads of the
+// same bytes by the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // The accumulator of m64nN, per thread of the warpgroup: d[4j + 2h + e]
@@ -247,6 +266,60 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "n"(kTransB));
 }
 
+// d (64 x 128, s32, accumulator layout) += A (64 x 32, s8, smem) · B (32 x 128, s8,
+// smem), both K-major
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 192, s32, accumulator layout) += A (64 x 32, s8, smem) · B (32 x 192, s8,
+// smem), both K-major
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------------------- host
@@ -270,20 +343,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A TMA map of a row-major bf16 tensor of `rank` dims (dims[0] innermost,
-// strides[i] the bytes between steps of dims[i + 1]) with boxes of
-// box[0] = 64 columns (128 bytes, the swizzle's span) by box[1..] rows,
-// 128-byte swizzle, zeros outside the tensor. Returns a cudaError_t code.
-inline int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+// A TMA map of a row-major tensor of `type` and `rank` dims (dims[0]
+// innermost, strides[i] the bytes between steps of dims[i + 1]) with boxes
+// of box[0] columns by box[1..] rows, zeros outside the tensor. With the
+// 128-byte swizzle a box row is 128 bytes, the swizzle's span. Returns a
+// cudaError_t code.
+inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                      const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map above for bf16 with the 128-byte swizzle, box[0] = 64 columns.
+inline int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
+                    dims, strides, box);
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current

@@ -8,8 +8,11 @@
 //     csrc/matmul_wgmma.cu.
 //     Both replace the Pallas kernel src/repro/kernels/matmul.py::matmul
 //     (body _matmul_kernel).
-//   * configured_matmul_launch: the zero points are the kernel's by-value
-//     parameters, f32, bf16 or int8 inputs, C in f32. Replaces
+//   * configured_matmul_launch: the "simt" route of
+//     kernels/matmul.py::configured_matmul, the zero points the kernel's
+//     by-value parameters, f32, bf16 or int8 inputs, C in f32, any shape;
+//     int8 that the tensor cores can take exactly goes to
+//     csrc/configured_matmul_wgmma.cu instead. Both replace
 //     src/repro/kernels/matmul.py::configured_matmul (body
 //     _configured_matmul_kernel). On the TPU the zero points reach the
 //     kernel by scalar prefetch into SMEM before the grid runs; OpenGeMM

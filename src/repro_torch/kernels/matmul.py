@@ -17,12 +17,21 @@ the type, the shape and the operands' alignment, and counted in
   cp.async ring, with the tile chosen to fill the card;
 * ``"simt"`` (``csrc/matmul.cu::gemm_kernel``): any shape, f32 or bf16.
 
-``configured_matmul`` always runs ``gemm_kernel``. Its zero points are the
-paper's configuration registers. The Pallas kernel brings them in by scalar
-prefetch; here they are the kernel's by-value launch parameters, so the
-wrapper needs them on the host: a pair of ints or a ``(2,)`` int32 CPU
-tensor. A CUDA tensor is refused, because reading it on the host would
-synchronise with the device.
+``configured_matmul`` takes one of two routes, chosen by
+:func:`plan_configured_matmul` and counted in
+``configured_matmul.launches_by_route``:
+
+* ``"wgmma"`` (``csrc/configured_matmul_wgmma.cu``): int8 on the tensor
+  cores with s32 sums, the zero points applied in the epilogue through
+  row and column sums, the exact integer result rounded to float32 once;
+* ``"simt"`` (``csrc/matmul.cu::gemm_kernel``): any shape, f32, bf16 or
+  int8, summed in float32.
+
+Its zero points are the paper's configuration registers. The Pallas kernel
+brings them in by scalar prefetch; here they are the kernels' by-value
+launch parameters, so the wrapper needs them on the host: a pair of ints
+or a ``(2,)`` int32 CPU tensor. A CUDA tensor is refused, because reading
+it on the host would synchronise with the device.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ _BLOCK_M = 128  # rows of C per block of the simt kernel; its grid's y extent is
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 ROUTES = ("wgmma", "pipelined", "simt")
-H100_SMS = 132
+CONFIGURED_ROUTES = ("wgmma", "simt")
 PIPELINED_TILES = (128, 64, 32)  # square f32 tiles, largest first
 WGMMA_BLOCK_M = 128
 WGMMA_BLOCK_NS = (128, 192)  # multiples of 64: the swizzle atom of an N-contiguous B
@@ -60,17 +69,23 @@ def _blocks(m: int, n: int, bm: int, bn: int) -> int:
     return -(-m // bm) * -(-n // bn)
 
 
-def plan_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs, sms: int = H100_SMS
-                ) -> MatmulPlan:
+def _wgmma_width(m: int, n: int, sms: int) -> int:
+    """The ``WGMMA_BLOCK_NS`` width with the least ``ceil(blocks / sms) ·
+    width``: the time of the last wave of tiles, so a second, nearly empty
+    wave is avoided."""
+    return min(WGMMA_BLOCK_NS,
+               key=lambda bn: (-(-_blocks(m, n, WGMMA_BLOCK_M, bn) // sms) * bn, bn))
+
+
+def plan_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs,
+                sms: int = _build.H100_SMS) -> MatmulPlan:
     """The kernel and tile of one ``matmul`` of ``(m, k)·(k, n)`` with A and B
     at addresses ``ptrs``, on a card of ``sms`` SMs. A pure function, so the
     rule is tested on the CPU.
 
     * bf16 takes ``"wgmma"`` where TMA can describe both operands: K and N
       multiples of 8 (16-byte row strides), K > 0 and both addresses 16-byte
-      aligned. Its tile is 128 rows by the ``WGMMA_BLOCK_NS`` width with the
-      least ``ceil(blocks / sms) · width``: the time of the last wave of
-      tiles, so a second, nearly empty wave is avoided.
+      aligned. Its tile is 128 rows by :func:`_wgmma_width`.
     * f32 takes ``"pipelined"`` where its 16-byte copies can: K and N
       multiples of 4, K > 0, both addresses 16-byte aligned. Its tile is the
       largest of ``PIPELINED_TILES`` whose grid covers the SMs, else the
@@ -81,9 +96,7 @@ def plan_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs, sms: int = H10
     a failed build or launch raises."""
     aligned = k > 0 and all(p % 16 == 0 for p in ptrs)
     if dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0:
-        width = min(WGMMA_BLOCK_NS, key=lambda bn: (
-            -(-_blocks(m, n, WGMMA_BLOCK_M, bn) // sms) * bn, bn))
-        return MatmulPlan("wgmma", WGMMA_BLOCK_M, width)
+        return MatmulPlan("wgmma", WGMMA_BLOCK_M, _wgmma_width(m, n, sms))
     if dtype == torch.float32 and aligned and k % 4 == 0 and n % 4 == 0:
         tile = next((t for t in PIPELINED_TILES if _blocks(m, n, t, t) >= sms),
                     PIPELINED_TILES[-1])
@@ -91,9 +104,30 @@ def plan_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs, sms: int = H10
     return MatmulPlan("simt", _BLOCK_M, _BLOCK_M)
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+INT8_WGMMA_MAX_K = 65536  # |sum a·b| <= K·128² stays inside int32
+INT8_WGMMA_MAX_ZP = 128  # |zp|: the epilogue's int64 terms, and the f32 result, stay exact
+
+
+def plan_configured_matmul(dtype: torch.dtype, m: int, k: int, n: int, ptrs, zero_points,
+                           sms: int = _build.H100_SMS) -> MatmulPlan:
+    """The kernel and tile of one ``configured_matmul`` of ``(m, k)·(k, n)``
+    with A and B at addresses ``ptrs`` and ``zero_points = (zp_a, zp_b)``,
+    on a card of ``sms`` SMs. A pure function, so the rule is tested on the
+    CPU.
+
+    * int8 takes ``"wgmma"`` where TMA and the 16-byte tiles can take the
+      operands and the sums stay exact: K and N multiples of 16 (16-byte
+      row strides), K > 0, both addresses 16-byte aligned,
+      ``K <= INT8_WGMMA_MAX_K`` and ``|zp| <= INT8_WGMMA_MAX_ZP``. Its tile
+      is 128 rows by :func:`_wgmma_width`, as for bf16 ``matmul``.
+    * Everything else, every f32 and bf16 call included, takes ``"simt"``.
+
+    An explicit route, not a fallback: a failed build or launch raises."""
+    aligned = k > 0 and all(p % 16 == 0 for p in ptrs)
+    if (dtype == torch.int8 and aligned and k % 16 == 0 and n % 16 == 0
+            and k <= INT8_WGMMA_MAX_K and all(abs(z) <= INT8_WGMMA_MAX_ZP for z in zero_points)):
+        return MatmulPlan("wgmma", WGMMA_BLOCK_M, _wgmma_width(m, n, sms))
+    return MatmulPlan("simt", _BLOCK_M, _BLOCK_M)
 
 
 @functools.cache
@@ -106,6 +140,14 @@ def _lib() -> ctypes.CDLL:
     lib.configured_matmul_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.configured_matmul_launch.restype = _I
     return lib
+
+
+@functools.cache
+def _configured_wgmma_launcher():
+    fn = _build.load("configured_matmul_wgmma").configured_matmul_wgmma_launch
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 @functools.cache
@@ -149,7 +191,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    plan = plan_matmul(a.dtype, m, k, n, (a.data_ptr(), b.data_ptr()), _sms(a.get_device()))
+    plan = plan_matmul(a.dtype, m, k, n, (a.data_ptr(), b.data_ptr()),
+                       _build.sm_count(a.get_device()))
     ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if plan.route == "wgmma":
@@ -192,8 +235,10 @@ def _zero_points(zero_points) -> tuple[int, int]:
 
 def configured_matmul(a: torch.Tensor, b: torch.Tensor, zero_points) -> torch.Tensor:
     """``(A - zp_a)·(B - zp_b)`` in float32, for float32, bfloat16 or int8
-    A and B of one type, with ``zero_points = (zp_a, zp_b)`` on the host.
-    ``configured_matmul.launches`` counts the kernel's launches."""
+    A and B of one type, with ``zero_points = (zp_a, zp_b)`` on the host,
+    through the route :func:`plan_configured_matmul` chooses.
+    ``configured_matmul.launches`` counts the kernels' launches and
+    ``configured_matmul.launches_by_route`` the launches of each route."""
     _check_operands("configured_matmul", a, b, _CONFIGURED_DTYPES)
     zp_a, zp_b = _zero_points(zero_points)
     if a.device.type == "cpu":
@@ -205,12 +250,19 @@ def configured_matmul(a: torch.Tensor, b: torch.Tensor, zero_points) -> torch.Te
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    _build.check(_lib().configured_matmul_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, zp_a, zp_b,
-        _CONFIGURED_DTYPES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream),
-        "configured_matmul")
+    plan = plan_configured_matmul(a.dtype, m, k, n, (a.data_ptr(), b.data_ptr()), (zp_a, zp_b),
+                                  _build.sm_count(a.get_device()))
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, zp_a, zp_b)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if plan.route == "wgmma":
+        err = _configured_wgmma_launcher()(*args, plan.block_n, stream)
+    else:
+        err = _lib().configured_matmul_launch(*args, _CONFIGURED_DTYPES[a.dtype], stream)
+    _build.check(err, f"configured_matmul ({plan.route})")
     configured_matmul.launches += 1
+    configured_matmul.launches_by_route[plan.route] += 1
     return out
 
 
 configured_matmul.launches = 0
+configured_matmul.launches_by_route = dict.fromkeys(CONFIGURED_ROUTES, 0)

@@ -12,22 +12,25 @@ runs the kernel or raises.
 :func:`top_k` is the port of ``repro/kernels/sampling.py::top_k``: the k
 best of each row in ``lax.top_k`` order (descending, NaN first, ties by the
 lowest index), in one launch of ``csrc/top_k.cu`` where the Pallas version
-takes k greedy passes. Its plain version is ``ref.top_k_ref``, a stable
-descending sort. ``k`` is at most :data:`K_MAX`, the kernel's compile-time
-list length.
+takes k greedy passes. The launch splits each row across
+``plan_top_k(...).splits`` blocks and merges their candidates in the block
+of the row that finishes last. Its plain version is ``ref.top_k_ref``, a
+stable descending sort. ``k`` is at most :data:`K_MAX`, the kernels'
+compile-time bound on their candidate lists.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 from .ref import greedy_sample_ref, top_k_ref
 
-K_MAX = 64  # top_k.cu's kKMax: each thread's list of the best k lives in registers
+K_MAX = 64  # top_k.cu's kKMax: the most its candidate lists and scratch hold
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -87,17 +90,57 @@ def _top_k_launcher():
     if lib.top_k_max_k() != K_MAX:
         raise RuntimeError(f"top_k.cu's kKMax is {lib.top_k_max_k()}, not K_MAX={K_MAX}")
     fn = lib.top_k_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+TOP_K_BLOCKS_PER_SM = 2
+TOP_K_MAX_SPLITS = 256  # the merging block's threads: each takes one block's list
+TOP_K_MIN_CHUNK = 1024  # elements, and at least 32·k: a block's k candidates stay small beside it
+TOP_K_ALIGN = 8  # elements: a chunk of a 16-byte aligned row starts 16-byte aligned
+TOP_K_REGISTER_K = 8  # top_k.cu's kRegisterKMax: larger k take its radix-select kernel
+TOP_K_PIECE = 4096  # top_k.cu's kPiece: the radix-select kernel's keys in shared memory
+
+
+@dataclass(frozen=True)
+class TopKPlan:
+    splits: int  # blocks per row
+    chunk: int  # elements of the row per block; the last block takes the rest
+
+    def bounds(self, v: int) -> list[tuple[int, int]]:
+        """Each block's ``[start, stop)`` of a row of ``v`` elements."""
+        return [(s * self.chunk, min(v, (s + 1) * self.chunk)) for s in range(self.splits)]
+
+
+def plan_top_k(b: int, v: int, k: int, sms: int = _build.H100_SMS) -> TopKPlan:
+    """How ``top_k`` splits each of ``b`` rows of ``v`` logits across blocks,
+    on a card of ``sms`` SMs. A pure function, so the rule is tested on the
+    CPU. About ``TOP_K_BLOCKS_PER_SM`` blocks per SM over the grid, at
+    most ``TOP_K_MAX_SPLITS`` per row, each chunk at least
+    ``max(TOP_K_MIN_CHUNK, 32·k)`` elements and a multiple of
+    ``TOP_K_ALIGN``; every chunk is non-empty. A short row or a large ``b``
+    gives one block per row when ``k <= TOP_K_REGISTER_K``. A larger k
+    takes the radix-select kernel, whose block selects from
+    ``TOP_K_PIECE`` elements at a time: there chunks are also cut to one
+    piece where ``TOP_K_MAX_SPLITS`` allows, so the pieces of a row run in
+    parallel rather than one after another."""
+    min_chunk = max(TOP_K_MIN_CHUNK, 32 * k)
+    splits = max(1, min(TOP_K_BLOCKS_PER_SM * sms // max(b, 1), v // min_chunk))
+    if k > TOP_K_REGISTER_K:
+        splits = max(splits, -(-v // TOP_K_PIECE))
+    splits = min(splits, TOP_K_MAX_SPLITS)
+    chunk = -(-v // splits)
+    chunk = -(-chunk // TOP_K_ALIGN) * TOP_K_ALIGN
+    return TopKPlan(-(-v // chunk), chunk)
 
 
 def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` best of each row of contiguous ``(B, V)`` float32, bfloat16
     or float16 logits → ``((B, k)`` float32 values, ``(B, k)`` int32 ids),
-    in ``lax.top_k`` order, for ``1 <= k <= min(V, K_MAX)``.
-    ``top_k.launches`` counts the kernel's launches."""
+    in ``lax.top_k`` order, for ``1 <= k <= min(V, K_MAX)``, split across
+    blocks as :func:`plan_top_k` says. ``top_k.launches`` counts the
+    kernel's launches."""
     _check_logits("top_k", logits)
     b, v = logits.shape
     if isinstance(k, bool) or not isinstance(k, int) or not 1 <= k <= min(v, K_MAX):
@@ -113,8 +156,14 @@ def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     ids = torch.empty((b, k), dtype=torch.int32, device=logits.device)
     if b == 0:
         return vals, ids
-    _build.check(_top_k_launcher()(logits.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, v, k,
-                                   _DTYPE_CODES[logits.dtype],
+    plan = plan_top_k(b, v, k, _build.sm_count(logits.get_device()))
+    scratch = (0, 0)
+    if plan.splits > 1:  # the blocks' candidates as 64-bit keys, and each row's blocks done
+        parts = torch.empty((b, plan.splits, k), dtype=torch.int64, device=logits.device)
+        arrived = torch.zeros((b,), dtype=torch.int32, device=logits.device)
+        scratch = (parts.data_ptr(), arrived.data_ptr())
+    _build.check(_top_k_launcher()(logits.data_ptr(), vals.data_ptr(), ids.data_ptr(), *scratch,
+                                   b, v, k, plan.splits, plan.chunk, _DTYPE_CODES[logits.dtype],
                                    torch.cuda.current_stream(logits.device).cuda_stream),
                  "top_k")
     top_k.launches += 1

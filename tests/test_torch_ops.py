@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import configured_matmul, matmul
-from repro_torch.kernels.sampling import K_MAX, top_k
+from repro_torch.kernels.sampling import K_MAX, plan_top_k, top_k
 
 MATMUL_SHAPES = [(128, 128, 128), (256, 128, 128), (128, 384, 256), (384, 256, 128)]
 ATTN_SHAPES = [(1, 2, 128, 64), (2, 4, 256, 64), (1, 1, 256, 128)]
@@ -114,6 +114,44 @@ def test_configured_matmul_op_types_and_ragged_shapes_exact(dtype):
         np.testing.assert_array_equal(ops.configured_matmul_op(a, b, zp).numpy(), want)
 
 
+def _epilogue(a: torch.Tensor, b: torch.Tensor, zp_a: int, zp_b: int) -> torch.Tensor:
+    """The int8 wgmma route's arithmetic written out in int64: the product
+    of the operands as they lie, corrected by the zero points through row
+    and column sums, rounded to float32 once."""
+    k = a.shape[1]
+    ab = a.long() @ b.long()
+    rowsum, colsum = a.long().sum(1, keepdim=True), b.long().sum(0, keepdim=True)
+    return (ab - zp_b * rowsum - zp_a * colsum + k * zp_a * zp_b).float()
+
+
+@pytest.mark.parametrize("shape", [(70, 130, 33), (128, 896, 64), (5, 16, 16)])
+@pytest.mark.parametrize("zp", [(-8, 8), (0, 0), (5, -3), (8, -8)])
+def test_int8_epilogue_identity_equals_jax_plain_version(shape, zp):
+    """Where every float32 partial sum is an integer below 2**24 (here
+    896 · 136 · 136 < 2**24), the exact integer result rounded once equals
+    the JAX plain version, which sums in float32."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jax_ref
+
+    m, k, n = shape
+    ja, a = _pair(_ints(30 + k, (m, k), -128, 128), "int8")
+    jb, b = _pair(_ints(40 + n, (k, n), -128, 128), "int8")
+    want = np.asarray(jax_ref.configured_matmul_ref(ja, jb, jnp.int32(zp[0]), jnp.int32(zp[1])))
+    np.testing.assert_array_equal(_epilogue(a, b, *zp).numpy(), want)
+    np.testing.assert_array_equal(ops.configured_matmul_op(a, b, zp).numpy(), want)
+
+
+def test_int8_epilogue_identity_is_exact_where_float32_sums_are_not():
+    """Full-range int8 at K = 4096 with zero points (-128, 127): the sums
+    pass 2**24, the float32 plain version rounds on the way, and the
+    identity still gives the float64 answer rounded once."""
+    a = torch.from_numpy(_ints(50, (32, 4096), -128, 128)).to(torch.int8)
+    b = torch.from_numpy(_ints(51, (4096, 16), -128, 128)).to(torch.int8)
+    exact = ((a.double() + 128) @ (b.double() - 127)).float()
+    assert float(exact.abs().max()) > 2**24
+    np.testing.assert_array_equal(_epilogue(a, b, -128, 127).numpy(), exact.numpy())
+
+
 # --------------------------------------------------------------- attention
 
 
@@ -207,6 +245,54 @@ def test_top_k_op_nan_and_ties_follow_lax_top_k(dtype):
     got_v, got_i = ops.top_k_op(x, 5)
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     np.testing.assert_array_equal(got_v.numpy(), want_v)  # NaN == NaN here
+
+
+def _across_chunks(b: int, v: int, k: int) -> np.ndarray:
+    """(b, v) rows whose ties and NaNs straddle each chunk boundary that
+    ``plan_top_k`` gives: row r takes pattern r % 4 (a tie across each
+    boundary, a NaN on each side, +inf on both sides, zeros of both signs)
+    over seeded normal values."""
+    x = _normal(60 + b, (b, v))
+    starts = [start for start, _ in plan_top_k(b, v, k).bounds(v)[1:]]
+    assert starts
+    for r in range(b):
+        for start in starts:
+            if r % 4 == 0:
+                x[r, start - 3:start + 3] = 5.0
+            elif r % 4 == 1:
+                x[r, start - 1:start + 1] = np.nan
+            elif r % 4 == 2:
+                x[r, start - 2:start + 2] = np.inf
+        if r % 4 == 3:
+            x[r, ::5] = 0.0
+            x[r, 2::5] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("b, v", [(4, 20_000), (1, 20_000), (3, 9_000)])
+@pytest.mark.parametrize("k", [1, 5, 8, K_MAX])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_top_k_split_and_merge_equals_lax_top_k(b, v, k, dtype):
+    """The kernel's split: each block's top k of its chunk, with global
+    indices, then the top k of the blocks' candidates in block order. On
+    ties and NaNs across the chunk boundaries, that equals the top k of the
+    whole row, both the port's plain version's and lax.top_k's."""
+    _, x, want_v, want_i = _lax_top_k(_across_chunks(b, v, k), k, dtype)
+    bounds = plan_top_k(b, v, k).bounds(v)
+    assert len(bounds) > 1
+    cand_v, cand_i = [], []
+    for start, stop in bounds:
+        vals, ids = ref.top_k_ref(x[:, start:stop], min(k, stop - start))
+        cand_v.append(vals)
+        cand_i.append(ids + start)
+    cand_v, cand_i = torch.cat(cand_v, 1), torch.cat(cand_i, 1)
+    vals, pos = ref.top_k_ref(cand_v, k)
+    ids = cand_i.gather(1, pos.long())
+    np.testing.assert_array_equal(ids.numpy(), want_i)
+    np.testing.assert_array_equal(vals.numpy(), want_v)
+    whole_v, whole_i = ref.top_k_ref(x, k)
+    np.testing.assert_array_equal(whole_i.numpy(), want_i)
+    np.testing.assert_array_equal(whole_v.numpy(), want_v)
 
 
 def test_top_k_k1_is_sample_op():
@@ -396,7 +482,11 @@ def test_cuda_top_k_matches_plain_version_exactly():
     rows = [torch.randn((4, 151_936), generator=gen, device="cuda"),
             torch.randint(-3, 3, (3, 1000), generator=gen, device="cuda").float(),  # many ties
             torch.tensor([[1.0, float("nan"), 3.0, 3.0, float("inf"), float("-inf")]] * 2,
-                         device="cuda")]
+                         device="cuda"),
+            torch.randn((1, 151_936), generator=gen, device="cuda"),  # the most blocks per row
+            torch.randn((64, 151_936), generator=gen, device="cuda"),  # the fewest
+            *(torch.from_numpy(_across_chunks(b, 151_936, k)).cuda()  # across chunk boundaries
+              for b, k in ((4, 8), (1, 8), (2, K_MAX)))]
     for x in rows:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             for k in (1, 2, 5, 8, 33, K_MAX):
@@ -406,6 +496,47 @@ def test_cuda_top_k_matches_plain_version_exactly():
                 want_v, want_i = ref.top_k_ref(x.to(dtype), k)
                 torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
                 torch.testing.assert_close(got_v, want_v, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, route", [
+    ("int8", "wgmma"), ("int8 ragged M", "wgmma"), ("int8 K % 16", "simt"),
+    ("int8 off-aligned", "simt"), ("float32", "simt"), ("bfloat16", "simt"),
+    ("int8 position-coded", "wgmma"), ("int8 K=4096 full range", "wgmma"),
+])
+def test_cuda_configured_matmul_each_route_matches_plain_version(case, route):
+    """Each route equals the plain version exactly on integer inputs whose
+    float32 sums are exact, and counts its launch; the position-coded int8
+    product (A the stacked identity, B coding its row and column) comes out
+    exactly; and at K = 4096 with zero points (-128, 127) the wgmma route
+    equals the float64 answer rounded once."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape, zp = {"int8 ragged M": (130, 144, 208), "int8 K % 16": (128, 136, 128),
+                 "int8 K=4096 full range": (128, 4096, 128)}.get(case, (512, 896, 4864)), (-8, 8)
+    m, k, n = shape
+    dt = getattr(torch, case.split()[0])
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda").to(dt)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda").to(dt)
+    if case == "int8 off-aligned":
+        a = _off_alignment(a)
+    if case == "int8 position-coded":
+        sel = torch.arange(m, device="cuda") % 128
+        a = torch.zeros((m, 128), dtype=torch.int8, device="cuda")
+        a[torch.arange(m, device="cuda"), sel] = 1
+        b = (torch.arange(128, device="cuda")[:, None] % 16 * 16
+             + torch.arange(n, device="cuda")[None, :] % 16 - 128).to(torch.int8)
+        zp = (0, 0)
+    if case == "int8 K=4096 full range":
+        zp = (-128, 127)
+    got = _routed(configured_matmul, route, lambda: configured_matmul(a, b, zp))
+    if case == "int8 position-coded":
+        want = b[sel].float()
+    elif case == "int8 K=4096 full range":
+        want = ((a.double() - zp[0]) @ (b.double() - zp[1])).float()
+    else:
+        want = ref.configured_matmul_ref(a, b, *zp)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _off_alignment(x: torch.Tensor) -> torch.Tensor:
