@@ -11,9 +11,11 @@ Phases, each printing its results; any failure exits non-zero:
    sm_90a, one nvcc per source, all started together, with the build
    seconds and the ``-Xptxas -v`` register and shared-memory report.
 3. Kernel check of greedy_sample against its plain PyTorch version on the
-   card, exactly, at the serving path's shapes and on adversarial rows;
-   then its time, the plain version's, the PyTorch library call's, and its
-   bound.
+   card, exactly, at the serving path's shapes, on adversarial rows and on
+   ties and NaNs straddling the chunk boundaries of its cluster split, each
+   call printing its cluster size; then its time at B = 1, 4 and 64, the
+   plain version's, the PyTorch library call's, top_k(x, 1)'s and its
+   bound, and its time at each cluster size the card places.
 4. Main path: full-width qwen2-0.5b with seeded weights, served by
    ``ServingEngine(sampling="fused")`` (8 requests), with the kernels' launch
    counts read just after; then the same requests with ``sampling="host"``,
@@ -27,7 +29,12 @@ Phases, each printing its results; any failure exits non-zero:
    each call took (wgmma, pipelined or simt, by the wrappers' per-route
    counters), are checked on every route, and must take wgmma for bf16 at
    qwen2-0.5b's widths; a position-coded bf16 product must come out
-   exactly. Their SIMT kernels are timed beside the new routes.
+   exactly. Their SIMT kernels are timed beside the new routes. Each SIMT
+   flash_attention call prints its plan (keys split across a cluster) and
+   staging, and each f32 one its error and the plain version's against
+   float64 (the kernel's may not pass twice the plain version's); every
+   calibration-ladder shape is timed in f32 beside SDPA, and the served
+   shape at every split.
    configured_matmul prints its route (wgmma for aligned int8, simt
    otherwise), must take wgmma for int8 at qwen2-0.5b's width, must give a
    position-coded int8 product exactly, and must equal the float64 answer
@@ -40,7 +47,8 @@ Phases, each printing its results; any failure exits non-zero:
 7. Calibration path: ``repro_torch.engine.calibrate.run_calibration`` over
    the full shape ladder on the card, each fit and sample printed beside the
    sample's device time, with the matmul, flash_attention and greedy_sample
-   launch counts read just after.
+   launch counts read just after (f32 flash_attention all staged by
+   cp.async, the ladder's sampling rows all whole).
 8. Ops path: ``kernels.ops.configured_matmul_op`` on int8 operands at
    qwen2-0.5b's MLP width and ``kernels.ops.top_k_op`` on the served
    model's last-position logits, the only entry points of those two
@@ -211,9 +219,46 @@ def _adversarial(v: int, dtype: torch.dtype) -> torch.Tensor:
     return rows.to(dtype).cuda()
 
 
-def phase_kernel_check(smi: str) -> dict:
-    from repro_torch.kernels import ref
+def _across_cluster_chunks(b: int, v: int) -> torch.Tensor:
+    """(b, v) rows of -1 whose ties and NaNs straddle every chunk boundary
+    that ``plan_greedy_sample`` gives at that shape: row r takes pattern
+    r % 4, a tie of 5 across each boundary, a NaN on each side, +inf on
+    both sides, or zeros of both signs everywhere."""
+    from repro_torch.kernels.sampling import plan_greedy_sample
+
+    x = torch.full((b, v), -1.0, device="cuda")
+    for start, _ in plan_greedy_sample(b, v).bounds(v)[1:]:
+        x[0::4, start - 3:start + 3] = 5.0
+        x[1::4, start - 1:start + 1] = float("nan")
+        x[2::4, start - 2:start + 2] = float("inf")
+    x[3::4] = 0.0
+    x[3::4, ::7] = -0.0
+    return x
+
+
+def _cluster_of(fn) -> tuple:
+    """``fn()``'s result and the cluster size its one greedy_sample launch
+    took, by the wrapper's per-cluster counters."""
     from repro_torch.kernels.sampling import greedy_sample
+
+    before = dict(greedy_sample.launches_by_cluster)
+    out = fn()
+    moved = [c for c, n in greedy_sample.launches_by_cluster.items() if n != before[c]]
+    if len(moved) != 1:
+        raise SystemExit(f"one call launched {greedy_sample.launches_by_cluster} after {before}")
+    return out, moved[0]
+
+
+def phase_kernel_check(smi: str) -> dict:
+    """greedy_sample exactly against its plain version: random rows at B =
+    1, 4, 8 and 64, adversarial rows, and ties and NaNs straddling the
+    plan's chunk boundaries at B = 1, 4 and 64, in three types, each call
+    printing its cluster size; then timed at B = 1, 4 and 64 beside
+    torch.argmax and top_k(x, 1), and the cluster sizes 4, 8 and 16 probed
+    at B = 1 and 4 where the card places them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sampling import (GreedyPlan, greedy_sample, max_active_clusters,
+                                              top_k)
 
     v = 151_936
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -224,26 +269,50 @@ def phase_kernel_check(smi: str) -> dict:
                 (b, v), generator=gen, device="cuda").to(dtype)))
         for vv in (v, v - 1, 1000, 151):  # v - 1 and 151: rows start unaligned
             cases.append((f"adversarial V={vv} {dtype}", _adversarial(vv, dtype)))
+        for b in (1, 4, 64):
+            cases.append((f"across cluster chunks B={b} V={v} {dtype}",
+                          _across_cluster_chunks(b, v).to(dtype)))
     worst = 0
     for label, x in cases:
-        got = greedy_sample(x)
+        got, cluster = _cluster_of(lambda: greedy_sample(x))
         want = ref.greedy_sample_ref(x)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         worst = max(worst, err)
-        print(f"[kernel] greedy_sample {label}: max_abs_err={err}")
+        print(f"[kernel] greedy_sample {label}: cluster={cluster} max_abs_err={err}")
         if err:
             raise SystemExit(f"greedy_sample disagrees with its plain version on {label}: "
                              f"{got.tolist()[:8]} vs {want.tolist()[:8]}")
 
-    x = torch.randn((4, v), generator=gen, device="cuda").to(torch.bfloat16)
-    runs = {"ms": lambda: greedy_sample(x),
-            "plain_ms": lambda: ref.greedy_sample_ref(x),
-            "library_ms": lambda: torch.argmax(x, dim=-1)}
-    bound = _bound_ms(x.numel() * x.element_size() + 4 * 4, 0.0, 1.0)
-    ms = _timed(f"greedy_sample B=4 V={v} bf16", runs, *bound, smi)
+    timed, clusters = {}, {}
+    for b in (4, 1, 64):
+        x = torch.randn((b, v), generator=gen, device="cuda").to(torch.bfloat16)
+        runs = {"ms": lambda: greedy_sample(x),
+                "plain_ms": lambda: ref.greedy_sample_ref(x),
+                "library_ms": lambda: torch.argmax(x, dim=-1),
+                "top_k1_ms": lambda: top_k(x, 1)}
+        bound = _bound_ms(x.numel() * x.element_size() + b * 4, 0.0, 1.0)
+        _, cluster = _cluster_of(lambda: greedy_sample(x))
+        clusters[b] = cluster
+        timed[b] = (_timed(f"greedy_sample B={b} V={v} bf16, cluster of {cluster} (top_k1_ms: "
+                           f"top_k(x, 1))", runs, *bound, smi), bound)
+    places = {c: max_active_clusters(c) for c in (4, 8, 16)}
+    print(f"[kernel] greedy_sample clusters the card holds at once, by size: {places}")
+    for b in (1, 4):
+        x = torch.randn((b, v), generator=gen, device="cuda").to(torch.bfloat16)
+        probe = {}
+        for c in (c for c, n in places.items() if n > 0):
+            plan = GreedyPlan(c, -(-(-(-v // c)) // 8) * 8)
+            if not torch.equal(greedy_sample(x, plan), ref.greedy_sample_ref(x)):
+                raise SystemExit(f"greedy_sample with a cluster of {c} disagrees at B={b}")
+            probe[c] = _device_ms(lambda: greedy_sample(x, plan))
+        print(f"[kernel] greedy_sample B={b} V={v} bf16, device ms by cluster size: "
+              + " ".join(f"{c}:{t:.5f}" for c, t in probe.items()) + f" ({smi})")
+    ms, bound = timed[4]
     return _record("greedy_sample", "greedy_sample.cu", "src/repro/kernels/sampling.py:66",
-                   worst, ms, bound)
+                   worst, ms, bound, cluster=clusters[4], top_k1_ms=ms["top_k1_ms"],
+                   ms_b1=timed[1][0]["ms"], library_ms_b1=timed[1][0]["library_ms"],
+                   ms_b64=timed[64][0]["ms"], library_ms_b64=timed[64][0]["library_ms"])
 
 
 def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -452,17 +521,52 @@ def check_configured_matmul(smi: str) -> dict:
                    path="wgmma", int_mm_ms=ms["int_mm_ms"], simt_ms=ms["simt_ms"])
 
 
+def _attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Softmax attention in float64, the bottom-right causal mask."""
+    sq, sk = q.shape[2], k.shape[2]
+    s = q.double() @ k.double().transpose(-1, -2) / float(q.shape[-1]) ** 0.5
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v.double()
+
+
+def _staged(fn) -> tuple:
+    """``fn()``'s result and the staging its one SIMT launch took, by the
+    wrapper's per-staging counters (None for another route)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    before = dict(flash_attention.launches_by_staging)
+    out = fn()
+    moved = [s for s, n in flash_attention.launches_by_staging.items() if n != before[s]]
+    return out, moved[0] if moved else None
+
+
+def _abba_ms(a, b) -> tuple[float, float]:
+    """Device times of ``a`` and ``b`` by CUDA graph, in turns (a, b, b, a),
+    medians."""
+    t = {"a": [], "b": []}
+    for key, fn in (("a", a), ("b", b), ("b", b), ("a", a)):
+        t[key].append(_device_ms(fn))
+    return float(np.median(t["a"])), float(np.median(t["b"]))
+
+
 def check_flash_attention(smi: str) -> list[dict]:
     """3e-2 (test_flash_attention_matches_oracle's) at qwen2-0.5b's 14 heads
     of 64, causal and full, f32 and bf16; at the decode shape against 256
     keys; causal Sq < Sk; at the calibration ladder's shapes; at D = 40 and
     128; and on the SIMT route (D = 36, and off 16-byte alignment). The
-    qwen-width bf16 call must take the wgmma route."""
+    qwen-width bf16 call must take the wgmma route. Each SIMT call prints
+    its plan (blocks of 64 query rows, keys split across a cluster) and its
+    staging; each f32 call prints its error and the plain f32 version's
+    against a float64 answer, and the kernel's may not pass twice the plain
+    version's. Every ladder shape is timed in f32 beside SDPA, and the
+    served shape at every split."""
     import torch.nn.functional as F
 
     from repro_torch.engine.calibrate import SHAPES
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import AttnPlan, flash_attention, plan_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [((1, 14, 512, 64),) * 2, ((2, 4, 1, 64), (2, 4, 256, 64)),
@@ -477,14 +581,30 @@ def check_flash_attention(smi: str) -> list[dict]:
                 for off in (False, True) if dtype == torch.bfloat16 else (False,):
                     args = (_off_alignment(q.to(dtype)) if off else q.to(dtype), k.to(dtype),
                             v.to(dtype))
-                    got, route = _routed(flash_attention,
-                                         lambda: flash_attention(*args, causal=causal))
+                    (got, staging), route = _routed(
+                        flash_attention,
+                        lambda: _staged(lambda: flash_attention(*args, causal=causal)))
                     want = ref.flash_attention_ref(*args, causal=causal)
                     torch.cuda.synchronize()
                     err = _max_err(got, want)
                     worst[dtype] = max(worst[dtype], err)
+                    plan = ""
+                    if route == "simt":
+                        p = plan_attention(qs[0] * qs[1], qs[2], ks[2], qs[3], causal)
+                        plan = f" splits={p.splits} staging={staging}"
+                    f64 = ""
+                    if dtype == torch.float32:
+                        exact = _attention_f64(*args, causal)
+                        e_kernel = float((got.double() - exact).abs().max())
+                        e_plain = float((want.double() - exact).abs().max())
+                        f64 = f" err_f64={e_kernel:.3g} plain_err_f64={e_plain:.3g}"
+                        if e_kernel > 2 * e_plain:
+                            raise SystemExit(f"flash_attention f32 q{qs} k{ks} causal={causal}: "
+                                             f"error {e_kernel} against float64 is more than "
+                                             f"twice the plain version's {e_plain}")
                     print(f"[kernel] flash_attention q{qs} k{ks} {dtype} causal={causal}"
-                          f"{' off-aligned' if off else ''}: route={route} max_abs_err={err:.6g}")
+                          f"{' off-aligned' if off else ''}: route={route}{plan} "
+                          f"max_abs_err={err:.6g}{f64}")
                     torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
                     if (qs, dtype, off) == ((1, 14, 512, 64), torch.bfloat16, False) \
                             and route != "wgmma":
@@ -504,22 +624,39 @@ def check_flash_attention(smi: str) -> list[dict]:
                                                                            is_causal=True),
                       "simt_ms": lambda: flash_attention(qb_off, kb, vb, causal=True)},
                   *bound16, smi)
+    plan = plan_attention(b * h, s, s, d, True)
     bound = _bound_ms(4 * 4 * b * h * s * d, 4 * d * pairs, F32_FLOPS)
-    ms = _timed(f"flash_attention ({b},{h},{s},{d}) f32 causal (route simt)", {
-        "ms": lambda: flash_attention(q, k, v, causal=True),
-        "plain_ms": lambda: ref.flash_attention_ref(q, k, v, causal=True),
-        "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)},
-        *bound, smi)
+    ms = _timed(f"flash_attention ({b},{h},{s},{d}) f32 causal (route simt, "
+                f"splits={plan.splits})", {
+                    "ms": lambda: flash_attention(q, k, v, causal=True),
+                    "plain_ms": lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                    "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)},
+                *bound, smi)
+    by_split = " ".join(
+        f"{n}:{_device_ms(lambda: flash_attention(q, k, v, causal=True, plan=AttnPlan(64, n))):.5f}"
+        for n in (1, 2, 4, 8))
+    print(f"[kernel] flash_attention ({b},{h},{s},{d}) f32 causal, device ms by splits: "
+          f"{by_split} ({smi})")
+    ladder = {}
+    for sl, dl, _ in SHAPES["flash_attention"]:
+        x, y, z = (torch.randn((1, 1, sl, dl), generator=gen, device="cuda") for _ in range(3))
+        p = plan_attention(1, sl, sl, dl, False)
+        t_k, t_lib = _abba_ms(lambda: flash_attention(x, y, z, causal=False),
+                              lambda: F.scaled_dot_product_attention(x, y, z))
+        ladder[f"{sl}x{dl}"] = t_k
+        print(f"[kernel] flash_attention (1,1,{sl},{dl}) f32 full, {p.splits} splits: device ms "
+              f"kernel_ms={t_k:.5f} library_ms={t_lib:.5f} bound_ms="
+              f"{_bound_ms(4 * 4 * sl * dl, 4 * dl * sl * sl, F32_FLOPS)[0]:.5f} ({smi})")
     q1 = torch.randn((1, 1, 128, 64), generator=gen, device="cuda").bfloat16()
     q1_off = _off_alignment(q1)
     _issue_abba("flash_attention (1,1,128,64) bf16 causal (wgmma encodes 3 TMA maps a call)",
                 lambda: flash_attention(q1, q1, q1), lambda: flash_attention(q1_off, q1, q1), smi)
     return [_record("flash_attention", "flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:69", worst[torch.float32], ms, bound,
-                    dtype="float32", path="simt"),
+                    dtype="float32", path="simt", splits=plan.splits, ladder_ms=ladder),
             _record("flash_attention_bf16", "flash_attention_wgmma.cu",
                     "src/repro/kernels/flash_attention.py:69", worst[torch.bfloat16], ms16,
-                    bound16, dtype="bfloat16", path="wgmma")]
+                    bound16, dtype="bfloat16", path="wgmma", simt_ms=ms16["simt_ms"])]
 
 
 def _across_chunks(b: int, v: int, k: int) -> torch.Tensor:
@@ -698,19 +835,27 @@ def phase_calibrate(smi: str) -> dict:
         wrapper.launches = 0
     matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+    flash_attention.launches_by_staging = dict.fromkeys(flash_attention.launches_by_staging, 0)
+    greedy_sample.launches_by_cluster = dict.fromkeys(greedy_sample.launches_by_cluster, 0)
     t0 = time.perf_counter()
     fits, samples = run_calibration(device="cuda", repeats=repeats)
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in counted.items()}
     print(f"[calibrate] full ladder in {wall:.2f} s; launches={launches}; by route: "
           f"matmul {matmul.launches_by_route}, flash_attention "
-          f"{flash_attention.launches_by_route}")
+          f"{flash_attention.launches_by_route}, by staging "
+          f"{flash_attention.launches_by_staging}; greedy_sample by cluster "
+          f"{greedy_sample.launches_by_cluster}")
     for kernel, n in launches.items():
         want = (1 + repeats) * len(SHAPES[kernel])
         if n != want:
             raise SystemExit(f"calibration launched {kernel} {n} times, not {want}")
     if matmul.launches_by_route["pipelined"] != launches["matmul"]:
         raise SystemExit("the calibration's f32 matmul did not all take the pipelined route")
+    if flash_attention.launches_by_staging["cp_async"] != launches["flash_attention"]:
+        raise SystemExit("the calibration's f32 flash_attention did not all stage by cp.async")
+    if greedy_sample.launches_by_cluster[1] != launches["sampling"]:
+        raise SystemExit("the calibration ladder's rows did not all stay whole")
     for kernel in sorted(samples):
         fit = fits[kernel]
         print(f"[calibrate] {kernel}: overhead_factor={fit.overhead_factor!r} "

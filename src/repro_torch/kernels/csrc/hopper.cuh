@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (matmul_wgmma.cu, configured_matmul_wgmma.cu, flash_attention_wgmma.cu):
-// mbarriers, TMA loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves (bf16 with f32 sums, s8 with s32 sums), plus two
-// host helpers (the TMA map encoder, reached through
+// Hopper building blocks shared by the port's kernels (matmul.cu,
+// matmul_wgmma.cu, configured_matmul_wgmma.cu, flash_attention.cu,
+// flash_attention_wgmma.cu): cp.async copies, mbarriers, TMA loads, wgmma
+// shared-memory descriptors and the wgmma instructions themselves (bf16
+// with f32 sums, s8 with s32 sums), plus two host helpers (the TMA map
+// encoder, reached through
 // cudaGetDriverEntryPoint so no -lcuda is needed, and a once-per-device raise of
 // a kernel's dynamic shared-memory limit). All shared-memory tiles here use
 // the 128-byte swizzle that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -71,6 +72,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// 16 bytes from global src to shared dst, asynchronously; zeros where
+// !in_range (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_range) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in_range ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // --------------------------------------------------------------------- TMA

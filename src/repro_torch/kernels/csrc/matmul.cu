@@ -67,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBM = 128;  // rows of C per block
@@ -154,13 +156,6 @@ gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, O* __restrict__ c,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_range) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in_range ? 16 : 0)
-               : "memory");
-}
-
 template <int T, int BK>
 __global__ void __launch_bounds__(kThreads)
 sgemm_pipelined(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
@@ -180,16 +175,16 @@ sgemm_pipelined(const float* __restrict__ a, const float* __restrict__ b, float*
       const int idx = threadIdx.x + r * kThreads;
       const int row = idx / (BK / 4), col = 4 * (idx % (BK / 4));
       const bool in = m0 + row < m && k0 + col < k;
-      cp_async16(&as[s][row][col], in ? a + static_cast<size_t>(m0 + row) * k + k0 + col : a, in);
+      hopper::cp_async16(&as[s][row][col], in ? a + static_cast<size_t>(m0 + row) * k + k0 + col : a, in);
     }
 #pragma unroll
     for (int r = 0; r < BK * T / 4 / kThreads; ++r) {
       const int idx = threadIdx.x + r * kThreads;
       const int row = idx / (T / 4), col = 4 * (idx % (T / 4));
       const bool in = k0 + row < k && n0 + col < n;
-      cp_async16(&bs[s][row][col], in ? b + static_cast<size_t>(k0 + row) * n + n0 + col : b, in);
+      hopper::cp_async16(&bs[s][row][col], in ? b + static_cast<size_t>(k0 + row) * n + n0 + col : b, in);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    hopper::cp_async_commit();
   };
 
   float acc[kT][kT];
@@ -204,9 +199,9 @@ sgemm_pipelined(const float* __restrict__ a, const float* __restrict__ b, float*
     const int s = step % kStages;
     if (step + 1 < steps) {
       stage((step + 1) % kStages, (step + 1) * BK);  // its stage was released last step
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      hopper::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();
 #pragma unroll

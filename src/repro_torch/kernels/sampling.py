@@ -5,9 +5,12 @@
 ``(B, V)`` logits → ``(B,)`` int32 ids, the lowest index winning ties and
 the first NaN winning over every number (``jnp.argmax``'s contract). On a
 CUDA tensor it launches the hand-written Hopper kernel
-``csrc/greedy_sample.cu``; on a CPU tensor it runs the plain version
-``ref.greedy_sample_ref``. There is no other route: a CUDA tensor either
-runs the kernel or raises.
+``csrc/greedy_sample.cu``, each row split across a thread-block cluster of
+``plan_greedy_sample(...).cluster`` blocks (up to 16, past the portable 8
+only where the card holds every row's cluster at once); on a CPU tensor it runs the
+plain version ``ref.greedy_sample_ref``. There is no other route: a CUDA
+tensor either runs the kernel or raises, also where the card cannot place
+the cluster.
 
 :func:`top_k` is the port of ``repro/kernels/sampling.py::top_k``: the k
 best of each row in ``lax.top_k`` order (descending, NaN first, ties by the
@@ -37,10 +40,71 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 @functools.cache
 def _launcher():
     fn = _build.load("greedy_sample").greedy_sample_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+GREEDY_CLUSTERS = (1, 2, 4, 8, 16)  # what the kernel launches; 16 needs the non-portable opt-in
+GREEDY_PORTABLE_CLUSTER = 8
+GREEDY_MIN_CHUNK = 8192  # elements: a block's chunk is at least this, so short rows stay whole
+GREEDY_ALIGN = 8  # elements: a chunk of a 16-byte aligned row starts 16-byte aligned
+H100_WIDE_CLUSTERS = 7  # clusters of 16 of the kernel an H100 SXM holds at once
+
+
+@dataclass(frozen=True)
+class GreedyPlan:
+    cluster: int  # blocks per row, one thread-block cluster
+    chunk: int  # elements of the row per block; the last block takes the rest
+
+    def bounds(self, v: int) -> list[tuple[int, int]]:
+        """Each block's ``[start, stop)`` of a row of ``v`` elements."""
+        return [(min(v, r * self.chunk), min(v, (r + 1) * self.chunk))
+                for r in range(self.cluster)]
+
+
+def plan_greedy_sample(b: int, v: int, sms: int = _build.H100_SMS,
+                       wide: int = H100_WIDE_CLUSTERS) -> GreedyPlan:
+    """How ``greedy_sample`` splits each of ``b`` rows of ``v`` logits
+    across one cluster of blocks, on a card of ``sms`` SMs that holds
+    ``wide`` clusters of 16 at once. A pure function, so the rule is tested
+    on the CPU. The cluster doubles from 1 while the grid stays within one
+    block per SM and every chunk at least ``GREEDY_MIN_CHUNK`` elements;
+    past the portable 8 only while all ``b`` clusters of 16 fit at once.
+    The chunk is a multiple of ``GREEDY_ALIGN``, and every chunk is
+    non-empty."""
+    cluster = 1
+    while (2 * cluster <= max(GREEDY_CLUSTERS) and 2 * cluster * b <= sms
+           and v >= 2 * cluster * GREEDY_MIN_CHUNK
+           and (2 * cluster <= GREEDY_PORTABLE_CLUSTER or b <= wide)):
+        cluster *= 2
+    chunk = -(-v // cluster)
+    return GreedyPlan(cluster, -(-chunk // GREEDY_ALIGN) * GREEDY_ALIGN)
+
+
+def _check_plan(plan: GreedyPlan, v: int) -> None:
+    if (plan.cluster not in GREEDY_CLUSTERS or plan.chunk <= 0 or plan.chunk % GREEDY_ALIGN
+            or not (plan.cluster - 1) * plan.chunk < v <= plan.cluster * plan.chunk):
+        raise ValueError(f"greedy_sample cannot launch {plan} on rows of {v}: the cluster is one "
+                         f"of {GREEDY_CLUSTERS} and its non-empty chunks, multiples of "
+                         f"{GREEDY_ALIGN}, cover the row")
+
+
+@functools.cache
+def max_active_clusters(cluster: int, dtype: torch.dtype = torch.bfloat16,
+                        index: int = 0) -> int:
+    """How many clusters of ``cluster`` blocks of the greedy kernel CUDA
+    device ``index`` holds at once; 0 if it cannot place one."""
+    if cluster not in GREEDY_CLUSTERS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no greedy kernel for a cluster of {cluster} and {dtype}")
+    count = ctypes.c_int(0)
+    fn = _build.load("greedy_sample").greedy_sample_max_active_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        _build.check(fn(cluster, _DTYPE_CODES[dtype], ctypes.byref(count)),
+                     "greedy_sample occupancy")
+    return count.value
 
 
 def _check_logits(name: str, logits: torch.Tensor) -> None:
@@ -56,12 +120,17 @@ def _check_logits(name: str, logits: torch.Tensor) -> None:
         raise ValueError(f"{name} needs 0 < V < 2**31, got V={logits.shape[1]}")
 
 
-def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+def greedy_sample(logits: torch.Tensor, plan: GreedyPlan | None = None) -> torch.Tensor:
     """Argmax over the last axis of contiguous ``(B, V)`` float32, bfloat16
-    or float16 logits → ``(B,)`` int32 ids. ``greedy_sample.launches``
-    counts the kernel's launches."""
+    or float16 logits → ``(B,)`` int32 ids, each row split as ``plan`` says
+    (default :func:`plan_greedy_sample`'s; another is for probes).
+    ``greedy_sample.launches`` counts the kernel's launches and
+    ``greedy_sample.launches_by_cluster`` the launches at each cluster
+    size."""
     _check_logits("greedy_sample", logits)
     b, v = logits.shape
+    if plan is not None:
+        _check_plan(plan, v)
     if logits.device.type == "cpu":
         return greedy_sample_ref(logits)
     if logits.device.type != "cuda":
@@ -69,19 +138,25 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     if logits.get_device() != torch.cuda.current_device():
         # the runtime launches on the current device's streams only
         with torch.cuda.device(logits.device):
-            return greedy_sample(logits)
+            return greedy_sample(logits, plan)
     out = torch.empty((b,), dtype=torch.int32, device=logits.device)
     if b == 0:
         return out
-    err = _launcher()(logits.data_ptr(), out.data_ptr(), b, v,
-                      _DTYPE_CODES[logits.dtype],
+    if plan is None:
+        index = logits.get_device()
+        plan = plan_greedy_sample(b, v, _build.sm_count(index),
+                                  max_active_clusters(max(GREEDY_CLUSTERS), logits.dtype, index))
+    err = _launcher()(logits.data_ptr(), out.data_ptr(), b, v, _DTYPE_CODES[logits.dtype],
+                      plan.cluster, plan.chunk,
                       torch.cuda.current_stream(logits.device).cuda_stream)
-    _build.check(err, "greedy_sample")
+    _build.check(err, f"greedy_sample (cluster of {plan.cluster})")
     greedy_sample.launches += 1
+    greedy_sample.launches_by_cluster[plan.cluster] += 1
     return out
 
 
 greedy_sample.launches = 0
+greedy_sample.launches_by_cluster = dict.fromkeys(GREEDY_CLUSTERS, 0)
 
 
 @functools.cache

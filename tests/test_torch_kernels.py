@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.sampling import greedy_sample
+from repro_torch.kernels.sampling import (GREEDY_CLUSTERS, GreedyPlan, greedy_sample,
+                                          max_active_clusters, plan_greedy_sample)
 
 SAMPLE_SHAPES = [(4, 256), (1, 151), (3, 1000), (8, 64)]  # tests/test_kernels.py
 
@@ -126,3 +127,61 @@ def test_cuda_kernel_matches_plain_version():
             assert greedy_sample.launches == before + 1
             torch.testing.assert_close(got, ref.greedy_sample_ref(x.to(dtype)),
                                        rtol=0, atol=0)
+
+
+def _across_cluster_chunks(b: int, v: int) -> torch.Tensor:
+    """(b, v) rows of -1 on the card whose ties and NaNs straddle each chunk
+    boundary ``plan_greedy_sample`` gives: row r takes pattern r % 4, a tie
+    of 5 across each boundary, a NaN on each side, +inf on both sides, or
+    zeros of both signs everywhere."""
+    x = torch.full((b, v), -1.0, device="cuda")
+    for start, _ in plan_greedy_sample(b, v).bounds(v)[1:]:
+        x[0::4, start - 3:start + 3] = 5.0
+        x[1::4, start - 1:start + 1] = float("nan")
+        x[2::4, start - 2:start + 2] = float("inf")
+    x[3::4] = 0.0
+    x[3::4, ::7] = -0.0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_cuda_kernel_is_exact_across_its_cluster_chunks(b):
+    """Ties and NaNs on both sides of every chunk boundary, and random rows,
+    exactly, in the three types; each launch is counted at the plan's
+    cluster size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+    v = 151_936
+    plan = plan_greedy_sample(b, v)
+    assert plan.cluster > 1
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    for x in (_across_cluster_chunks(b, v), torch.randn((b, v), generator=gen, device="cuda")):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            before = dict(greedy_sample.launches_by_cluster)
+            got = greedy_sample(x.to(dtype))
+            torch.cuda.synchronize()
+            assert greedy_sample.launches_by_cluster[plan.cluster] == before[plan.cluster] + 1
+            torch.testing.assert_close(got, ref.greedy_sample_ref(x.to(dtype)), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", GREEDY_CLUSTERS)
+def test_cuda_kernel_is_exact_at_every_cluster_size(cluster):
+    """Every cluster the kernel launches, 16 where the card places it, on
+    rows whose chunks start off 16-byte alignment (V odd)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+    if max_active_clusters(cluster) == 0:
+        pytest.skip(f"this card places no cluster of {cluster} blocks")
+    v = 151_935
+    chunk = -(-(-(-v // cluster)) // 8) * 8
+    plan = GreedyPlan(cluster, chunk)
+    gen = torch.Generator(device="cuda").manual_seed(cluster)
+    x = torch.randn((4, v), generator=gen, device="cuda")
+    for start, _ in plan.bounds(v)[1:]:
+        x[:, start - 1:start + 1] = 7.0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = greedy_sample(x.to(dtype), plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.greedy_sample_ref(x.to(dtype)), rtol=0, atol=0)

@@ -1,5 +1,6 @@
-"""The port's matmul, configured_matmul, flash_attention and top_k against
-the JAX package's.
+"""The port's matmul, configured_matmul, flash_attention, top_k and the
+split-and-merge arithmetic of its flash_attention and greedy_sample kernels
+against the JAX package's.
 
 The same inputs, made with numpy and carried across bit-exactly, go
 through ``repro.kernels.ops`` (the Pallas kernels in interpret mode, and
@@ -15,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+import math
+
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, k_end, plan_attention
 from repro_torch.kernels.matmul import configured_matmul, matmul
-from repro_torch.kernels.sampling import K_MAX, plan_top_k, top_k
+from repro_torch.kernels.sampling import K_MAX, greedy_sample, plan_greedy_sample, plan_top_k, top_k
 
 MATMUL_SHAPES = [(128, 128, 128), (256, 128, 128), (128, 384, 256), (384, 256, 128)]
 ATTN_SHAPES = [(1, 2, 128, 64), (2, 4, 256, 64), (1, 1, 256, 128)]
@@ -206,6 +209,125 @@ def test_attention_op_causal_sq_below_sk_follows_ref_not_pallas():
     assert np.abs(to_numpy32(got) - to_numpy32(pallas)).max() > 1.0
 
 
+def _split_merge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool) -> torch.Tensor:
+    """The SIMT kernel's arithmetic written out in float32: each query
+    tile's keys cut into ``plan_attention``'s ranges, each range's partial
+    (m, l, acc) over unscaled scores with p = exp((s - m) / sqrt(D)) (a
+    range whose keys are all masked keeps m = -inf, l = 0, acc = 0), and
+    the partials merged with weights exp((m_p - max m) / sqrt(D))."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    plan = plan_attention(b * h, sq, sk, d, causal)
+    scale = torch.tensor(1 / math.sqrt(d), dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty((b, h, sq, d), dtype=torch.float32)
+    for q0 in range(0, sq, plan.block_q):
+        rows = torch.arange(q0, min(sq, q0 + plan.block_q))
+        parts = []
+        for start, stop in plan.key_ranges(k_end(q0, plan.block_q, sq, sk, causal)):
+            s = qf[:, :, rows] @ kf[:, :, start:stop].transpose(-1, -2)
+            if causal:
+                keys = torch.arange(start, stop)
+                s = s.masked_fill(keys[None, :] > rows[:, None] + sk - sq, float("-inf"))
+            m = s.amax(-1) if stop > start else torch.full(s.shape[:-1], float("-inf"))
+            p = torch.exp((s - torch.where(m == float("-inf"), 0.0, m)[..., None]) * scale)
+            parts.append((m, p.sum(-1), p @ vf[:, :, start:stop]))
+        big = torch.stack([m for m, _, _ in parts]).amax(0)
+        num, den = 0.0, 0.0
+        for m, l_p, acc in parts:
+            w = torch.where(m == float("-inf"), 0.0, torch.exp((m - big) * scale))
+            num, den = num + w[..., None] * acc, den + w * l_p
+        out[:, :, rows] = num / den[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("q_shape, k_shape, causal", [
+    *(((1, 1, s, d), (1, 1, s, d), False) for s, d, _ in
+      [(128, 64, 0), (256, 64, 0), (384, 64, 0), (512, 64, 0), (256, 128, 0)]),  # the ladder
+    ((1, 2, 128, 64), (1, 2, 256, 64), True),  # causal Sq < Sk
+    ((2, 4, 1, 64), (2, 4, 256, 64), True),  # decode: Sq = 1
+    ((2, 4, 1, 64), (2, 4, 256, 64), False),
+    ((1, 14, 512, 64), (1, 14, 512, 64), True),  # qwen2-0.5b's width
+    ((1, 2, 33, 40), (1, 2, 65, 40), True),
+])
+def test_attention_split_merge_identity_equals_jax_plain_version(q_shape, k_shape, causal):
+    """Merging the per-split partial states over the plan's key ranges gives
+    the JAX plain version at 1e-5: the split, the exponent taken on
+    unscaled score differences, and the merge change only the rounding."""
+    from repro.kernels import ref as jax_ref
+
+    (jq, q), (jk, k), (jv, v) = (_pair(_normal(s, shape), "float32")
+                                 for s, shape in ((1, q_shape), (2, k_shape), (3, k_shape)))
+    assert plan_attention(q_shape[0] * q_shape[1], q_shape[2], k_shape[2], q_shape[3],
+                          causal).splits > 1
+    _close(_split_merge_attention(q, k, v, causal),
+           jax_ref.flash_attention_ref(jq, jk, jv, causal=causal), 1e-5, 1e-5)
+
+
+def _beats(av: float, ai: int, bv: float, bi: int) -> bool:
+    """greedy_sample.cu's combine: NaN first, then the larger value, ties
+    and NaNs to the lower index."""
+    an, bn = math.isnan(av), math.isnan(bv)
+    if an or bn:
+        return an and (not bn or ai < bi)
+    return av > bv or (av == bv and ai < bi)
+
+
+def _across_greedy_chunks(b: int, v: int) -> np.ndarray:
+    """(b, v) seeded normal rows whose ties and NaNs straddle each chunk
+    boundary that ``plan_greedy_sample`` gives: row r takes pattern r % 4,
+    a tie of 5 across each boundary, a NaN on each side, +inf on both
+    sides, or zeros of both signs everywhere."""
+    x = _normal(70 + b, (b, v))
+    starts = [start for start, _ in plan_greedy_sample(b, v).bounds(v)[1:]]
+    assert starts
+    for r in range(b):
+        for start in starts:
+            if r % 4 == 0:
+                x[r, start - 3:start + 3] = 5.0
+            elif r % 4 == 1:
+                x[r, start - 1:start + 1] = np.nan
+            elif r % 4 == 2:
+                x[r, start - 2:start + 2] = np.inf
+        if r % 4 == 3:
+            x[r] = 0.0
+            x[r, 2::5] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("b, v", [(1, 151_936), (4, 70_000), (64, 40_000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_greedy_split_merge_identity_equals_jnp_argmax(b, v, dtype):
+    """The kernel's split: each block's (value, index) of its chunk, then
+    rank 0's combine of the cluster's pairs. On ties and NaNs across the
+    chunk boundaries that equals jnp.argmax of the whole row, and the
+    wrapper's plain version."""
+    import jax.numpy as jnp
+    from _torch_port import to_torch
+    from repro.kernels import ref as jax_ref
+
+    x = _across_greedy_chunks(b, v)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = to_torch(jx)
+    plan = plan_greedy_sample(b, v)
+    assert plan.cluster > 1
+    pairs = []
+    for start, stop in plan.bounds(v):
+        i = ref.greedy_sample_ref(tx[:, start:stop]).long() + start
+        pairs.append((tx.float().gather(1, i[:, None])[:, 0].tolist(), i.tolist()))
+    got = []
+    for r in range(b):
+        bv, bi = float("-inf"), 2**31 - 1
+        for vals, ids in pairs:
+            if _beats(vals[r], ids[r], bv, bi):
+                bv, bi = vals[r], ids[r]
+        got.append(bi)
+    want = np.asarray(jax_ref.greedy_sample_ref(jx))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(greedy_sample(tx).numpy(), want)
+
+
 # -------------------------------------------------------------------- top-k
 
 
@@ -374,6 +496,25 @@ def _attn(bad: str):
 def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         flash_attention(*_attn(bad), causal=True)
+
+
+@pytest.mark.parametrize("block_q, splits", [(32, 2), (64, 3), (64, 16), (64, 0)])
+def test_flash_attention_rejects_a_plan_the_kernel_cannot_launch(block_q, splits):
+    from repro_torch.kernels.flash_attention import AttnPlan
+
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="cannot launch"):
+        flash_attention(q, q, q, plan=AttnPlan(block_q, splits))
+
+
+@pytest.mark.parametrize("cluster, chunk", [(3, 104), (32, 16), (2, 100), (2, 400), (4, 72)])
+def test_greedy_sample_rejects_a_plan_the_kernel_cannot_launch(cluster, chunk):
+    """V = 300: the cluster must be a size the kernel launches, the chunk a
+    multiple of 8, and the chunks non-empty and covering the row."""
+    from repro_torch.kernels.sampling import GreedyPlan
+
+    with pytest.raises(ValueError, match="cannot launch"):
+        greedy_sample(torch.zeros((2, 300)), GreedyPlan(cluster, chunk))
 
 
 def test_flash_attention_full_takes_sq_above_sk():
@@ -625,3 +766,69 @@ def test_cuda_flash_attention_each_route_matches_plain_version(dtype, q_shape, k
     got = _routed(flash_attention, route, lambda: flash_attention(q, k, v, causal=causal))
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal),
                                rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_cuda_flash_attention_each_split_matches_plain_version(splits):
+    """The SIMT kernel at every cluster size, on f32 (cp.async staging, and
+    plain staging at D = 38 and off 16-byte alignment) and bf16 off
+    alignment: the ladder's shape, causal Sq < Sk, decode Sq = 1, ragged
+    Sq and Sk; float32 within 1e-4 of the plain version, bf16 3e-2."""
+    _cuda()
+    from repro_torch.kernels.flash_attention import AttnPlan
+
+    gen = torch.Generator(device="cuda").manual_seed(7 + splits)
+    plan = AttnPlan(64, splits)
+    for qs, ks, causal in [((1, 1, 512, 64), (1, 1, 512, 64), False),
+                           ((1, 2, 128, 64), (1, 2, 256, 64), True),
+                           ((2, 4, 1, 64), (2, 4, 256, 64), True),
+                           ((1, 2, 100, 128), (1, 2, 300, 128), False),
+                           ((1, 3, 70, 38), (1, 3, 91, 38), True)]:
+        q, k, v = (torch.randn(s, generator=gen, device="cuda") for s in (qs, ks, ks))
+        for dtype, off, staging, tol in ((torch.float32, False, "cp_async" if qs[3] % 4 == 0
+                                          else "plain", 1e-4),
+                                         (torch.float32, True, "plain", 1e-4),
+                                         (torch.bfloat16, True, "plain", 3e-2)):
+            x = q.to(dtype)
+            args = (_off_alignment(x) if off else x, k.to(dtype), v.to(dtype))
+            before = dict(flash_attention.launches_by_staging)
+            got = _routed(flash_attention, "simt",
+                          lambda: flash_attention(*args, causal=causal, plan=plan))
+            assert flash_attention.launches_by_staging[staging] == before[staging] + 1
+            torch.testing.assert_close(got, ref.flash_attention_ref(*args, causal=causal),
+                                       rtol=tol, atol=tol)
+
+
+def _attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Softmax attention in float64, the bottom-right causal mask."""
+    sq, sk = q.shape[2], k.shape[2]
+    s = q.double() @ k.double().transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v.double()
+
+
+def test_float64_attention_is_the_plain_version_in_float64():
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 2, 5, 8), generator=gen) for _ in range(3))
+    for causal in (True, False):
+        torch.testing.assert_close(_attention_f64(q, k, v, causal).float(),
+                                   ref.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_f32_error_is_at_most_twice_the_plain_versions():
+    """Against a float64 answer, the kernel's f32 error is at most twice
+    the plain f32 version's, at qwen2-0.5b's width and the ladder's
+    shapes."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape, causal in [((1, 14, 512, 64), True), ((1, 1, 128, 64), False),
+                          ((1, 1, 512, 64), False), ((1, 1, 256, 128), False)]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        exact = _attention_f64(q, k, v, causal)
+        err = (flash_attention(q, k, v, causal=causal).double() - exact).abs().max()
+        plain = (ref.flash_attention_ref(q, k, v, causal=causal).double() - exact).abs().max()
+        assert err <= 2 * plain, (shape, float(err), float(plain))

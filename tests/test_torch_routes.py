@@ -1,5 +1,7 @@
 """The route rules of the port's matmul, configured_matmul and
-flash_attention wrappers, and top_k's split of each row across blocks.
+flash_attention wrappers, flash_attention's staging and its split of each
+query tile's keys across a cluster, and top_k's and greedy_sample's splits
+of each row across blocks.
 
 Each wrapper chooses its kernel on a CUDA tensor by a pure function of the
 type, the shape, the operands' addresses and, for configured_matmul, the
@@ -15,14 +17,19 @@ import pytest
 import torch
 
 from repro_torch.engine.calibrate import SHAPES
+from repro_torch.kernels.flash_attention import ATTN_BLOCK_Q, ATTN_KEY_UNIT, ATTN_SPLITS, STAGINGS
 from repro_torch.kernels.flash_attention import ROUTES as ATTENTION_ROUTES
-from repro_torch.kernels.flash_attention import attention_route, flash_attention
+from repro_torch.kernels.flash_attention import attention_route, attention_staging, flash_attention
+from repro_torch.kernels.flash_attention import k_end as attention_k_end
+from repro_torch.kernels.flash_attention import plan_attention
 from repro_torch.kernels.matmul import (CONFIGURED_ROUTES, INT8_WGMMA_MAX_K, INT8_WGMMA_MAX_ZP,
                                         PIPELINED_TILES, ROUTES, WGMMA_BLOCK_NS,
                                         configured_matmul, matmul, plan_configured_matmul,
                                         plan_matmul)
-from repro_torch.kernels.sampling import (K_MAX, TOP_K_ALIGN, TOP_K_MAX_SPLITS, TOP_K_MIN_CHUNK,
-                                          TOP_K_PIECE, TOP_K_REGISTER_K, plan_top_k)
+from repro_torch.kernels.sampling import (GREEDY_ALIGN, GREEDY_CLUSTERS, GREEDY_MIN_CHUNK,
+                                          GREEDY_PORTABLE_CLUSTER, K_MAX, TOP_K_ALIGN, TOP_K_MAX_SPLITS,
+                                          TOP_K_MIN_CHUNK, TOP_K_PIECE, TOP_K_REGISTER_K,
+                                          plan_greedy_sample, plan_top_k)
 
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 ALIGNED = (0x7F0000000000, 0x7F0000100000)
@@ -200,3 +207,128 @@ def test_top_k_plan_chunks_cover_the_row(b, v, k, sms):
     plan = _check_top_k_plan(b, v, k, sms)
     assert plan.splits <= max(1, 2 * sms // b, -(-v // TOP_K_PIECE) if k > TOP_K_REGISTER_K else 1)
     assert plan.splits == 1 or plan.bounds(v)[-2][1] - plan.bounds(v)[-2][0] >= 32 * k
+
+
+@pytest.mark.parametrize("dtype, d, offsets, staging", [
+    (F32, 64, (0, 0, 0), "cp_async"),
+    (F32, 128, (0, 0, 0), "cp_async"),
+    (F32, 40, (0, 16, 32), "cp_async"),
+    (F32, 36, (0, 0, 0), "cp_async"),  # 144-byte rows: whole 16-byte words
+    (F32, 38, (0, 0, 0), "plain"),  # 152-byte rows
+    (F32, 64, (4, 0, 0), "plain"),  # q one element off 16 bytes
+    (F32, 64, (0, 0, 8), "plain"),  # v 8 bytes off
+    (BF16, 64, (0, 0, 0), "plain"),  # bf16 tiles are converted as they are staged
+    (BF16, 36, (0, 0, 0), "plain"),
+])
+def test_attention_staging(dtype, d, offsets, staging):
+    ptrs = tuple(0x7F0000000000 + 0x100000 * i + off for i, off in enumerate(offsets))
+    assert attention_staging(dtype, d, (*ptrs, 0x7F0000300004)) == staging  # out's address is not read
+    assert staging in STAGINGS
+
+
+def test_every_staging_is_counted():
+    assert set(flash_attention.launches_by_staging) == set(STAGINGS)
+
+
+def _check_attention_plan(bh, sq, sk, d, causal, sms=132):
+    plan = plan_attention(bh, sq, sk, d, causal, sms)
+    assert plan.block_q == ATTN_BLOCK_Q and plan.splits in ATTN_SPLITS
+    tiles = -(-sq // plan.block_q)
+    for t in range(tiles):
+        end = attention_k_end(t * plan.block_q, plan.block_q, sq, sk, causal)
+        ranges = plan.key_ranges(end)
+        assert len(ranges) == plan.splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == end  # the ranges cover k_end exactly
+        assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
+        assert all(start % ATTN_KEY_UNIT == 0 for start, _ in ranges)  # whole units
+        if -(-end // ATTN_KEY_UNIT) >= plan.splits:
+            assert all(stop > start for start, stop in ranges)
+    # the heaviest tile's keys give every split at least one unit
+    assert plan.splits <= max(1, -(-sk // ATTN_KEY_UNIT))
+    return plan
+
+
+@pytest.mark.parametrize("s, d, _n", SHAPES["flash_attention"])
+def test_attention_plan_gives_the_ladder_tens_of_blocks(s, d, _n):
+    """The calibration ladder, (1, 1, S, D) full: 2-8 query tiles, which
+    left 124-130 SMs idle; split 8 ways they are 16-64 blocks."""
+    plan = _check_attention_plan(1, s, s, d, False)
+    blocks = -(-s // plan.block_q) * plan.splits
+    assert plan.splits == max(ATTN_SPLITS) and blocks >= 16
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plan_fills_the_card_at_the_served_shape(causal):
+    """(1, 14, 512, 64): 112 query tiles already fill most SMs; the plan
+    splits at most in two (balancing the causal tiles' unequal keys), and
+    the grid covers at least half the SMs."""
+    plan = _check_attention_plan(14, 512, 512, 64, causal)
+    blocks = 14 * -(-512 // plan.block_q) * plan.splits
+    assert blocks >= 132 // 2 and plan.splits <= 2
+
+
+@pytest.mark.parametrize("bh, sq, sk, d, causal", [
+    (8, 1, 256, 64, True), (8, 1, 256, 64, False),  # decode: Sq = 1
+    (2, 128, 256, 64, True), (2, 100, 300, 128, False), (2, 33, 65, 40, True),
+    (2, 200, 200, 40, True), (2, 33, 33, 36, True), (1, 1, 1, 8, True), (3, 70, 17, 16, False),
+    (4096, 512, 512, 64, True), (1, 5000, 5000, 128, True), (1, 64, 10**6, 64, False),
+])
+def test_attention_plan_ranges_cover_each_tiles_keys(bh, sq, sk, d, causal):
+    plan = _check_attention_plan(bh, sq, sk, d, causal)
+    if bh * -(-sq // plan.block_q) >= 132:
+        assert plan.splits <= 2  # a grid that fills the card is split at most to balance it
+
+
+@pytest.mark.parametrize("bh, sq, sk", [(1, 1, 256), (1, 512, 512), (14, 512, 512), (4096, 64, 64)])
+def test_attention_plan_never_passes_the_portable_cluster(bh, sq, sk):
+    for sms in (1, 8, 132, 10_000):
+        assert plan_attention(bh, sq, sk, 64, True, sms).splits <= 8
+
+
+def _check_greedy_plan(b, v, sms=132, wide=7):
+    plan = plan_greedy_sample(b, v, sms, wide)
+    bounds = plan.bounds(v)
+    assert plan.cluster in GREEDY_CLUSTERS
+    assert plan.cluster <= GREEDY_PORTABLE_CLUSTER or b <= wide  # every wide cluster fits at once
+    assert len(bounds) == plan.cluster
+    assert bounds[0][0] == 0 and bounds[-1][1] == v  # the chunks cover the row exactly
+    assert all(b0[1] == b1[0] for b0, b1 in zip(bounds, bounds[1:]))
+    assert all(stop > start for start, stop in bounds)  # every chunk non-empty
+    assert plan.chunk % GREEDY_ALIGN == 0
+    assert plan.cluster == 1 or plan.chunk >= GREEDY_MIN_CHUNK
+    return plan
+
+
+@pytest.mark.parametrize("shape", SHAPES["sampling"])
+def test_greedy_plan_keeps_the_calibration_ladders_rows_whole(shape):
+    b, _, v = shape
+    assert _check_greedy_plan(b, v).cluster == 1
+
+
+@pytest.mark.parametrize("b, cluster", [(1, 16), (4, 16), (7, 16), (8, 8), (16, 8), (17, 4),
+                                        (64, 2), (66, 2), (67, 1), (256, 1)])
+def test_greedy_plan_at_the_served_vocab(b, cluster):
+    """V = 151,936 on an H100 (132 SMs, 7 clusters of 16 at once): about
+    one block per SM over the grid. B = 64 fills 128 of 132 SMs; at B = 4
+    the cluster of 16, the most one row can take, gives 64."""
+    plan = _check_greedy_plan(b, 151_936)
+    assert plan.cluster == cluster
+    assert b * plan.cluster <= 132 or plan.cluster == 1
+    if b >= 64:
+        assert b * plan.cluster >= 132 // 2
+
+
+@pytest.mark.parametrize("b", [1, 4, 7])
+def test_greedy_plan_stays_portable_where_the_card_holds_no_wide_cluster(b):
+    assert _check_greedy_plan(b, 151_936, wide=0).cluster == GREEDY_PORTABLE_CLUSTER
+    assert _check_greedy_plan(b, 151_936, wide=b - 1).cluster == GREEDY_PORTABLE_CLUSTER
+
+
+@pytest.mark.parametrize("b, v, sms, wide", [
+    (1, 151_936, 132, 7), (4, 151_936, 132, 0), (1, 10**7, 10_000, 7), (1, 10**7, 10_000, 0),
+    (2, 16_384, 132, 7), (2, 16_383, 132, 7), (3, 99_991, 132, 7), (1, 1, 132, 7), (5, 8200, 1, 7),
+])
+def test_greedy_plan_chunks_cover_the_row_and_respect_the_cap(b, v, sms, wide):
+    plan = _check_greedy_plan(b, v, sms, wide)
+    assert b * plan.cluster <= max(sms, b)
+    assert plan.cluster <= max(GREEDY_CLUSTERS)
