@@ -22,7 +22,17 @@ Phases, each printing its results; any failure exits non-zero:
    whose token streams must be bit-identical.
 5. Full-width numerics: ``forward`` logits against teacher-forced
    ``decode_step`` logits.
-6. Kernel check of matmul, configured_matmul, flash_attention and top_k,
+6. Serve loop: ``repro_torch.launch.serve.serve`` at its command's
+   defaults (batch 4, 64 steps, cache 256, fuse 8) in its three modes,
+   and fused once more at fuse 1, each printing ms per step and tokens/s
+   by wall clock, device ms per step by CUDA events around the timed loop,
+   and its greedy_sample launches (fused: captured per graph times
+   replays); fused also prints its graphs and their capture time.
+   Sequential and concurrent ids must be bit-identical, and so must fused
+   at fuse 1 (the sequential schedule); fused at fuse 8 must give the ids
+   of the same schedule run eagerly; every mode must launch greedy_sample
+   once per produced step, and fused must replay graphs.
+7. Kernel check of matmul, configured_matmul, flash_attention and top_k,
    each against its plain version at its stated tolerance, at the
    calibration ladder's shapes, at qwen2-0.5b's widths and on adversarial
    inputs, then timed as in 3. matmul and flash_attention print the route
@@ -44,12 +54,12 @@ Phases, each printing its results; any failure exits non-zero:
    on ties and NaNs across chunk boundaries and on a row off 16-byte
    alignment, and is timed at k = 1, 8 and 64, by device time alone at
    k = 2 to 32, and at B = 1 and 64 beside torch.topk.
-7. Calibration path: ``repro_torch.engine.calibrate.run_calibration`` over
+8. Calibration path: ``repro_torch.engine.calibrate.run_calibration`` over
    the full shape ladder on the card, each fit and sample printed beside the
    sample's device time, with the matmul, flash_attention and greedy_sample
    launch counts read just after (f32 flash_attention all staged by
    cp.async, the ladder's sampling rows all whole).
-8. Ops path: ``kernels.ops.configured_matmul_op`` on int8 operands at
+9. Ops path: ``kernels.ops.configured_matmul_op`` on int8 operands at
    qwen2-0.5b's MLP width and ``kernels.ops.top_k_op`` on the served
    model's last-position logits, the only entry points of those two
    kernels, and ``matmul_op`` and ``attention_op`` in bf16 at qwen2-0.5b's
@@ -86,6 +96,7 @@ SEED = 0
 N_REQUESTS = 8
 MAX_NEW = 32
 PARITY_RTOL, PARITY_ATOL, PARITY_TOP1 = 0.05, 0.15, 0.9  # test_decode_parity's
+SERVE_BATCH, SERVE_STEPS, SERVE_CACHE, SERVE_FUSE = 4, 64, 256, 8  # python -m repro_torch.launch.serve's defaults
 
 
 def _smi() -> str:
@@ -820,6 +831,105 @@ def phase_numerics(model, params) -> None:
         raise SystemExit(f"top-1 agreement {top1} < {PARITY_TOP1}")
 
 
+def _eager_fused_ids(model, params, fuse: int) -> torch.Tensor:
+    """The serve loop's fused schedule as a plain loop of ``decode_step``
+    and ``sample_op`` calls with an int position: the warm-up's ``fuse``
+    steps feed each other, then the tokens restart from ones at ``fuse``."""
+    from repro_torch.kernels import ops
+
+    cache = model.init_cache(SERVE_BATCH, SERVE_CACHE)
+    ones = torch.ones((SERVE_BATCH, 1), dtype=torch.int32, device=model.device)
+    tokens, ids = ones, []
+    for pos in range(max(SERVE_STEPS, fuse)):
+        logits, cache = model.decode_step(params, cache, tokens, pos)
+        tokens = ops.sample_op(logits[:, -1])[:, None]
+        if pos >= fuse:
+            ids.append(tokens.T)
+        if pos == fuse - 1:
+            tokens = ones
+    return torch.cat(ids).cpu()
+
+
+def _profiled(fn, steps_run: int) -> dict:
+    """Device operations (kernels, copies, fills) a decode step and their
+    summed device time, by torch.profiler over ``fn()``, which runs
+    ``steps_run`` decode steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    return {"ops": sum(r.count for r in device) / steps_run,
+            "busy_ms": sum(r.self_device_time_total for r in device) / 1e3 / steps_run}
+
+
+def phase_serve_modes(model, params, smi: str) -> None:
+    """``python -m repro_torch.launch.serve``'s loop, through ``serve()``, in
+    each mode at full width, with greedy_sample's count set to 0 just before
+    each run and read just after."""
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.launch.serve import serve
+
+    runs = {}
+    for label, mode, fuse in (("sequential", "sequential", SERVE_FUSE),
+                              ("concurrent", "concurrent", SERVE_FUSE),
+                              ("fused", "fused", SERVE_FUSE), ("fused fuse=1", "fused", 1)):
+        greedy_sample.launches = 0
+        run = serve(model, params, batch=SERVE_BATCH, steps=SERVE_STEPS, cache_len=SERVE_CACHE,
+                    mode=mode, fuse=fuse)
+        counted = greedy_sample.launches
+        graphs = "".join(f"; graph k={g.k}: {g.launches} greedy_sample launches captured, "
+                         f"{g.replays} replays" for g in run.graphs)
+        print(f"[serve-modes] mode={label} batch={SERVE_BATCH} steps={run.produced}: "
+              f"{run.wall_s * 1e3:.3f} ms total, {run.tokens_per_s:.1f} tok/s "
+              f"({run.ms_per_step:.4f} ms/step); device {run.device_ms / run.produced:.4f} "
+              f"ms/step (CUDA events around the timed loop); host issue a launch, over "
+              f"{run.launches}: first {run.issue_ms[0]:.4f} ms, median of the rest "
+              f"{np.median(run.issue_ms[1:]):.4f}, mean {np.mean(run.issue_ms):.4f}; "
+              f"greedy_sample launches in the "
+              f"timed loop {run.sample_launches} (counter {counted}, warm-up and captures "
+              f"included){graphs}" + (f"; {len(run.graphs)} graphs captured in "
+                                      f"{run.capture_s:.3f} s" if mode == "fused" else "")
+              + f" ({smi})")
+        if counted == 0 or run.sample_launches != run.produced:
+            raise SystemExit(f"serve {label} launched greedy_sample {run.sample_launches} times "
+                             f"for {run.produced} steps")
+        if tuple(run.ids.shape) != (SERVE_STEPS - (fuse if mode == "fused" else 1), SERVE_BATCH) \
+                or not bool(((run.ids >= 0) & (run.ids < model.cfg.vocab_size)).all()):
+            raise SystemExit(f"serve {label} gave ids of shape {tuple(run.ids.shape)} outside "
+                             f"the vocabulary")
+        runs[label] = run
+    if not runs["fused"].graphs or not all(g.replays for g in runs["fused"].graphs):
+        raise SystemExit("fused serving did not replay its CUDA graphs")
+    seq = runs["sequential"].ids
+    for label in ("concurrent", "fused fuse=1"):
+        if not torch.equal(runs[label].ids, seq):
+            raise SystemExit(f"serve {label} ids differ from sequential's")
+    if not torch.equal(runs["fused"].ids, _eager_fused_ids(model, params, SERVE_FUSE)):
+        raise SystemExit("fused serving's graph replays differ from the same schedule run eagerly")
+    print(f"[serve-modes] sequential, concurrent and fused fuse=1 ids bit-identical "
+          f"({tuple(seq.shape)}); fused fuse={SERVE_FUSE} ids equal the eager schedule's "
+          f"({tuple(runs['fused'].ids.shape)}); first steps {seq[:3].tolist()}")
+
+    # short runs under torch.profiler: what a step costs the card, against
+    # the timed runs' device ms a step (the rest is the card idle)
+    short = {"batch": SERVE_BATCH, "cache_len": SERVE_CACHE}
+    for label, run, kw, steps_run in (
+            ("sequential", runs["sequential"], dict(mode="sequential", steps=9), 9),
+            ("fused", runs["fused"], dict(mode="fused", steps=3 * SERVE_FUSE, fuse=SERVE_FUSE),
+             3 * SERVE_FUSE),
+            ("fused fuse=1", runs["fused fuse=1"], dict(mode="fused", steps=9, fuse=1), 9)):
+        prof = _profiled(lambda: serve(model, params, **short, **kw), steps_run)
+        step_ms = run.device_ms / run.produced
+        print(f"[serve-modes] profile, mode={label}, {steps_run} steps (warm-up included): "
+              f"{prof['ops']:.1f} device ops a step, busy {prof['busy_ms']:.4f} ms a step; "
+              f"against the timed run's {step_ms:.4f} device ms a step the card is idle "
+              f"{1 - prof['busy_ms'] / step_ms:.3f} of it ({smi})")
+
+
 def phase_calibrate(smi: str) -> dict:
     """The calibration harness over the full ladder, as a user runs it; each
     sample's wall time beside that shape's device time by CUDA graph, so
@@ -950,6 +1060,7 @@ def main() -> None:
     print(f"[model] qwen2-0.5b full width, seeded: {n_params} parameters")
     launches = phase_main_path(model, params)
     phase_numerics(model, params)
+    phase_serve_modes(model, params, smi)
     records += [*check_matmul(smi), check_configured_matmul(smi), *check_flash_attention(smi),
                 check_top_k(smi)]
     calibration = phase_calibrate(smi)

@@ -20,4 +20,4 @@ def get(name: str) -> ModelConfig:
         return ARCHS[name]
     raise KeyError(
         f"arch {name!r} is not ported (ported: {sorted(ARCHS)}); the other "
-        f"model families are queued in ROADMAP.md, Queue 1, item 6")
+        f"model families are queued in ROADMAP.md, Queue 1, \"The other families\"")

@@ -1,3 +1,16 @@
-from .executor import ExecReport, ScheduledExecutor
+from .executor import (
+    ConcurrentExecutor,
+    ExecReport,
+    ScheduledExecutor,
+    SequentialExecutor,
+)
+from .planner import ConfigPlan, StepDescriptor
 
-__all__ = ["ExecReport", "ScheduledExecutor"]
+__all__ = [
+    "ConcurrentExecutor",
+    "ConfigPlan",
+    "ExecReport",
+    "ScheduledExecutor",
+    "SequentialExecutor",
+    "StepDescriptor",
+]

@@ -1,19 +1,29 @@
-"""Scheduled launch executor: staged launches plus descriptor dedup.
+"""Launch executors: sequential, concurrent and scheduled.
 
-The counterpart of ``repro/dispatch/executor.py``'s
-:class:`ScheduledExecutor`. Each launch descriptor (a tree of dicts, lists
-and leaves) flows through a :class:`~repro_torch.sched.state_cache.ConfigStateCache`:
-fields bit-identical to the previous launch are elided from the traffic
-accounting — they are device-resident state, exactly like an unwritten
-configuration register. The device still sees the full argument tree; what
-the report splits out is how many descriptor bytes needed to cross the
-host→device boundary.
+The counterpart of ``repro/dispatch/executor.py``:
 
-PyTorch dispatches CUDA work asynchronously, as JAX does. The staging ring
-holds one CUDA event per launch, recorded on the current stream after the
-launch; when the ring holds more than ``depth`` launches the oldest event is
-synchronised. Launches on CPU tensors finish before they return, so their
-ring entries are empty.
+* :class:`SequentialExecutor` is the paper's *sequential configuration*
+  timeline: prepare the step's configuration on the host, launch, then
+  block until the launch has run before preparing the next one. Host and
+  device take turns; configuration time adds to the critical path.
+* :class:`ConcurrentExecutor` is *concurrent configuration*: PyTorch's
+  asynchronous CUDA queue plays the role of OpenGeMM's staging registers.
+  Up to ``depth`` launches stay in flight while the host prepares the next
+  configuration, hiding host time behind device time (§5.5 overlap).
+* :class:`ScheduledExecutor` is concurrent staging plus a
+  :class:`~repro_torch.sched.state_cache.ConfigStateCache` in front of the
+  launch descriptors: fields bit-identical to the previous launch are
+  elided from the traffic accounting — they are device-resident state,
+  exactly like an unwritten configuration register. The device still sees
+  the full argument tree; what the report splits out is how many descriptor
+  bytes needed to cross the host→device boundary.
+
+The staging ring holds one CUDA event per launch, recorded on the current
+stream after the launch; when the ring holds more than ``depth`` launches
+the oldest event is synchronised. Launches on CPU tensors finish before
+they return, so their ring entries are empty: on the CPU the concurrent
+executor cannot overlap host preparation with the device, as JAX's CPU
+backend does.
 """
 
 from __future__ import annotations
@@ -98,6 +108,74 @@ def _on_cuda(tree) -> bool:
                for _, v in flatten_with_path(tree))
 
 
+def _done_event(out) -> torch.cuda.Event | None:
+    """An event recorded after the launch that produced ``out``, if it ran on
+    the card; None for a launch on CPU tensors, which has finished."""
+    if not _on_cuda(out):
+        return None
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def _retire(inflight: deque) -> None:
+    done = inflight.popleft()
+    if done is not None:
+        done.synchronize()
+
+
+def _arg_bytes(args) -> int:
+    return sum(getattr(v, "nbytes", 0) for _, v in flatten_with_path(args))
+
+
+class SequentialExecutor:
+    def __init__(self, device_fn, host_prep):
+        self.device_fn = device_fn
+        self.host_prep = host_prep
+
+    def run(self, state, n_steps: int) -> tuple[object, ExecReport]:
+        t0 = time.perf_counter()
+        prep_s = 0.0
+        nbytes = 0
+        for step in range(n_steps):
+            tp = time.perf_counter()
+            args = self.host_prep(step)
+            prep_s += time.perf_counter() - tp
+            nbytes += _arg_bytes(args)
+            state = self.device_fn(state, args)
+            done = _done_event(state)
+            if done is not None:
+                done.synchronize()  # sequential: host stalls per launch
+        wall = time.perf_counter() - t0
+        return state, ExecReport(wall, prep_s, n_steps, nbytes / max(n_steps, 1))
+
+
+class ConcurrentExecutor:
+    def __init__(self, device_fn, host_prep, depth: int = 2):
+        self.device_fn = device_fn
+        self.host_prep = host_prep
+        self.depth = depth
+
+    def run(self, state, n_steps: int) -> tuple[object, ExecReport]:
+        t0 = time.perf_counter()
+        prep_s = 0.0
+        nbytes = 0
+        inflight: deque = deque()
+        for step in range(n_steps):
+            tp = time.perf_counter()
+            args = self.host_prep(step)  # overlaps the in-flight device work
+            prep_s += time.perf_counter() - tp
+            nbytes += _arg_bytes(args)
+            state = self.device_fn(state, args)  # asynchronous: returns early
+            inflight.append(_done_event(state))
+            if len(inflight) > self.depth:  # bounded staging queue (§2.2)
+                _retire(inflight)
+        while inflight:
+            _retire(inflight)
+        wall = time.perf_counter() - t0
+        return state, ExecReport(wall, prep_s, n_steps, nbytes / max(n_steps, 1))
+
+
 class ScheduledExecutor:
     """Concurrent staging + runtime descriptor deduplication.
 
@@ -149,25 +227,16 @@ class ScheduledExecutor:
         self._sent += plan.bytes_sent
         self._elided += plan.bytes_elided
         state = self.device_fn(state, args)  # async dispatch: returns early
-        done = None
-        if _on_cuda(self.sync_fn(state)):
-            done = torch.cuda.Event()
-            done.record()
-        self._inflight.append(done)
+        self._inflight.append(_done_event(self.sync_fn(state)))
         if len(self._inflight) > self.depth:
-            self._retire()
+            _retire(self._inflight)
         self._steps += 1
         return state
-
-    def _retire(self) -> None:
-        done = self._inflight.popleft()
-        if done is not None:
-            done.synchronize()
 
     def drain(self) -> None:
         """Retire every staged launch (end-of-run / engine idle barrier)."""
         while self._inflight:
-            self._retire()
+            _retire(self._inflight)
 
     def report(self, wall_s: float) -> ExecReport:
         """Cumulative traffic split over every launch so far."""

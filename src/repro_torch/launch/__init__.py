@@ -1,0 +1,2 @@
+"""Entry points of the port: batched serving
+(``python -m repro_torch.launch.serve``)."""

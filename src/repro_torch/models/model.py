@@ -40,11 +40,11 @@ class Model:
         if cfg.family != "dense" or cfg.mlp_kind != "swiglu":
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.mlp_kind} MLP) is not ported: "
-                f"ROADMAP.md Queue 1, item 6 (the other model families)")
+                f"ROADMAP.md, Queue 1, \"The other families\"")
         if cfg.cache_quant != "none" or cfg.attn_chunk:
             raise NotImplementedError(
-                "int8 KV and chunked attention are not ported: ROADMAP.md "
-                "Queue 1, item 5")
+                "int8 KV and chunked attention are not ported: ROADMAP.md, "
+                "Queue 1, \"int8 KV and chunked_attention\"")
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -111,8 +111,11 @@ class Model:
     ) -> tuple[torch.Tensor, dict]:
         """One new token per sequence. tokens: (B, 1); pos: an int or 0-d
         tensor (every slot at one position), or a (B,) int32 vector for
-        continuous batching (per-slot positions). Returns ``(logits, cache)``
-        with (B, 1, V) logits and ``cache`` updated in place.
+        continuous batching (per-slot positions). A tensor on the model's
+        device is used as it is, with no copy from the host, so a CUDA graph
+        can replay the step while the card advances the position. Returns
+        ``(logits, cache)`` with (B, 1, V) logits and ``cache`` updated in
+        place.
 
         ``update_mask`` (optional, (B,) bool) freezes the cache rows of
         unselected batch entries: masked-out slots still compute (their

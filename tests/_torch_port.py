@@ -17,13 +17,14 @@ from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.models.model import Model as TorchModel
 
 
-def reduced_pair():
-    """(cfg, jax_model, jax_params, torch_model, torch_params)."""
+def reduced_pair(seed: int = 0):
+    """(cfg, jax_model, jax_params, torch_model, torch_params), the
+    parameters drawn by the JAX ``Model.init`` from ``seed``."""
     cfg = dataclasses.replace(get("qwen2-0.5b").reduced(), remat="none")
     tcfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), remat="none")
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     jmodel = Model(cfg)
-    jparams = jmodel.init(jax.random.key(0))
+    jparams = jmodel.init(jax.random.key(seed))
     tmodel = TorchModel(tcfg, device="cpu")
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return cfg, jmodel, jparams, tmodel, tparams

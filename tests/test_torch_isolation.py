@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-serves on the CPU with both made unimportable."""
+serves on the CPU with both made unimportable, through the serving engine
+and through ``python -m repro_torch.launch.serve`` in each of its modes."""
 
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ for i, p in enumerate([[5, 9, 2], [7, 1], [3, 3, 3, 3]]):
     engine.submit(Request(uid=i, prompt=p, max_new_tokens=4))
 done = engine.run_until_done()
 assert sorted(len(r.generated) for r in done) == [4, 4, 4], done
+import runpy
+for mode in ("sequential", "concurrent", "fused"):  # python -m repro_torch.launch.serve
+    sys.argv = ["serve", "--device", "cpu", "--reduced", "--steps", "6", "--mode", mode]
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -39,6 +44,8 @@ def test_port_serves_with_jax_and_repro_unimportable():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "served 3" in out.stdout
+    for mode, steps in (("sequential", 5), ("concurrent", 5), ("fused", 0)):
+        assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
 
 
 _CALIBRATE_WITHOUT_JAX = """
