@@ -66,6 +66,21 @@ Phases, each printing its results; any failure exits non-zero:
    widths (the wgmma routes, which the calibration's f32 does not run),
    with their launch counts read just after; the int8 product must take
    configured_matmul's wgmma route.
+10. Closed-loop bridge: ``repro_torch.bridge`` at the serving-bridge
+   benchmark's first cell (``benchmarks/serving_bridge.py``): 6 tenants of
+   full-width qwen2-0.5b (one set of seeded weights, a KV cache of 4 slots
+   × 64 each, three prompts, 10 new tokens, prefill chunk 8) on a cluster
+   model of 2 hosts with one OpenGeMM each over a NoC, first run
+   standalone and then bridged in four arms: sticky affinity, round-robin,
+   host sampling under affinity, prefill chunk 1 under affinity. Each arm
+   prints, measured on the card, its wall, tokens/s, ms a launch,
+   decode-only step median and the host time outside the engines; and,
+   labelled as the OpenGeMM cycle model's, tokens/kcycle, p99 decode
+   cycles, makespan, cycles a launch and config bytes sent and elided.
+   Every arm's tokens must equal the standalone engines', config parity
+   must hold for every tenant of the sticky arms, and greedy_sample must
+   launch once per fused decode launch (counted from 0 for each arm); the
+   record's ``launches_bridge`` sums the fused arms.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -97,6 +112,14 @@ N_REQUESTS = 8
 MAX_NEW = 32
 PARITY_RTOL, PARITY_ATOL, PARITY_TOP1 = 0.05, 0.15, 0.9  # test_decode_parity's
 SERVE_BATCH, SERVE_STEPS, SERVE_CACHE, SERVE_FUSE = 4, 64, 256, 8  # python -m repro_torch.launch.serve's defaults
+# the serving-bridge benchmark's first cell (benchmarks/serving_bridge.py)
+BRIDGE_TENANTS, BRIDGE_HOSTS, BRIDGE_SLOTS, BRIDGE_MAX_LEN, BRIDGE_MAX_NEW = 6, 2, 4, 64, 10
+BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
+    ("affinity", "affinity", True, "fused", 8),
+    ("round_robin", "round_robin", False, "fused", 8),
+    ("host sampling", "affinity", True, "host", 8),
+    ("prefill chunk 1", "affinity", True, "fused", 1),
+)
 
 
 def _smi() -> str:
@@ -1042,6 +1065,120 @@ def phase_ops_path(model, params) -> dict:
     return launches
 
 
+def _bridge_tenants(model, params, fns: dict, sampling: str, prefill_chunk: int) -> list:
+    """The serving-bridge benchmark's tenants (``make_tenants``): one set of
+    weights, an engine and KV cache each, three prompts of 3, 2 and 4
+    tokens, distinct per tenant."""
+    from repro_torch.bridge import TenantEngine
+    from repro_torch.serving import Request, ServingEngine
+
+    tenants = []
+    for i in range(BRIDGE_TENANTS):
+        engine = ServingEngine(model, params, max_slots=BRIDGE_SLOTS, max_len=BRIDGE_MAX_LEN,
+                               decode_fn=fns[sampling], prefill_fn=fns["prefill"],
+                               sampling=sampling, prefill_chunk=prefill_chunk)
+        for uid, prompt in enumerate([[3 + i, 5, 2 + (i % 3)], [7, 1 + i], [11, 2, 4, 1 + i]]):
+            engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=BRIDGE_MAX_NEW))
+        tenants.append(TenantEngine(f"t{i}", engine, accel="opengemm", slo_cycles=2_000.0))
+    return tenants
+
+
+def _streams(tenants) -> dict:
+    return {te.tenant: {r.uid: r.generated for r in te.engine.finished} for te in tenants}
+
+
+def phase_bridge(model, params, smi: str) -> int:
+    """The closed-loop serving bridge at the serving-bridge benchmark's
+    cell shape: 6 tenants of full-width qwen2-0.5b on a cluster model of 2
+    hosts with one OpenGeMM each over a NoC, in four arms. The card computes
+    every token; the cycle model prices the same launch stream in OpenGeMM
+    cycles. Returns greedy_sample's launches over the fused arms, counted
+    from 0 just before each arm and read just after."""
+    from repro_torch.bridge import ClosedLoopDriver
+    from repro_torch.cluster import Cluster
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.serving import ServingEngine
+
+    fns = {"fused": ServingEngine.compile_decode(model, sampling="fused"),
+           "host": ServingEngine.compile_decode(model, sampling="host"),
+           "prefill": ServingEngine.compile_prefill(model)}
+    standalone = _bridge_tenants(model, params, fns, "fused", 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for te in standalone:
+        te.engine.run_until_done()
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    alone_launches = sum(te.engine.executor.launches for te in standalone)
+    want = _streams(standalone)
+    n_tok = sum(len(g) for s in want.values() for g in s.values())
+    print(f"[bridge] standalone on the card: {BRIDGE_TENANTS} engines run one after another, "
+          f"{n_tok} tokens, {alone_launches} launches in {alone_s:.3f} s = "
+          f"{n_tok / alone_s:.2f} tokens/s, {alone_s * 1e3 / alone_launches:.2f} ms a launch ({smi})")
+    if n_tok != BRIDGE_TENANTS * 3 * BRIDGE_MAX_NEW:
+        raise SystemExit(f"standalone engines produced {n_tok} tokens")
+
+    fused_launches = 0
+    for arm, policy, sticky, sampling, chunk in BRIDGE_ARMS:
+        tenants = _bridge_tenants(model, params, fns, sampling, chunk)
+        step_s = []  # (seconds, launches, prefill launches) of each engine step
+
+        def timed(step):
+            def run():
+                ts = time.perf_counter()
+                produced, descs = step()
+                step_s.append((time.perf_counter() - ts, len(descs),
+                               sum("prefill_tokens" in d for d in descs)))
+                return produced, descs
+            return run
+
+        for te in tenants:
+            te.step = timed(te.step)
+        cluster = Cluster.uniform(BRIDGE_HOSTS, {"opengemm": 1}, policy=policy, sticky=sticky,
+                                  link="noc", max_contexts=4)
+        greedy_sample.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ClosedLoopDriver(tenants, cluster).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = greedy_sample.launches
+        launches = rep.cluster.launches
+        decodes = sum(s.launches - s.prefill_launches for s in rep.steps)
+        engine_s = sum(s for s, _, _ in step_s)
+        decode_only = [s * 1e3 for s, n, pre in step_s if n == 1 and pre == 0]
+        print(f"[bridge] arm={arm} (policy={policy}, sticky={sticky}, sampling={sampling}, "
+              f"prefill chunk {chunk}), measured on the card: wall {wall:.3f} s, "
+              f"{rep.tokens / wall:.2f} tokens/s, {wall * 1e3 / launches:.2f} ms a launch over "
+              f"{launches} launches ({launches - decodes} prefill), decode-only step median "
+              f"{np.median(decode_only):.2f} ms over {len(decode_only)}; host outside the "
+              f"engines (cycle model and bridge) {(wall - engine_s) * 1e3 / launches:.3f} ms a "
+              f"launch; greedy_sample launches {counted} for {decodes if sampling == 'fused' else 0}"
+              f" fused decode launches ({smi})")
+        served = [r.end - r.arrival for r in rep.cluster.records]
+        parity = rep.config_parity()
+        print(f"[bridge] arm={arm}, OpenGeMM cycle model (model cycles, not the card): "
+              f"tokens_per_kcycle={rep.tokens_per_kcycle:.6f}, p99 decode "
+              f"{max(s.p99_decode for s in rep.serving.values()):.1f} cycles, makespan "
+              f"{rep.cluster.makespan:.1f} cycles, {np.mean(served):.2f} cycles a launch "
+              f"arrival to retire, config bytes sent {rep.cluster.bytes_sent} elided "
+              f"{rep.cluster.bytes_elided}, parity matched for "
+              f"{sum(p['matched'] for p in parity.values())} of {len(parity)} tenants")
+        if _streams(tenants) != want:
+            raise SystemExit(f"bridge arm {arm} gave other tokens than the standalone engines")
+        if sticky and not all(p["matched"] for p in parity.values()):
+            raise SystemExit(f"bridge arm {arm}: config bytes do not match the engines' "
+                             f"accounting: {parity}")
+        if counted != (decodes if sampling == "fused" else 0):
+            raise SystemExit(f"bridge arm {arm} launched greedy_sample {counted} times for "
+                             f"{decodes} decode launches")
+        if sampling == "fused":
+            fused_launches += counted
+    print("[bridge] every arm's token streams equal the standalone engines'; config parity "
+          "matched in the sticky arms; greedy_sample once per fused decode launch")
+    return fused_launches
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -1069,8 +1206,11 @@ def main() -> None:
     print(f"[calibrate] greedy_sample launches on the calibration path: "
           f"{calibration['greedy_sample']} (the record's count is the serving path's)")
     launches.update(phase_ops_path(model, params))
+    bridge_launches = phase_bridge(model, params, smi)
     for record in records:
         record["launches"] = launches[record["name"]]
+        if record["name"] == "greedy_sample":
+            record["launches_bridge"] = bridge_launches
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -1,0 +1,373 @@
+"""The port's copies of the cycle model stay copies of the JAX package's.
+
+Each copied module has the reference's code (its AST, docstrings aside,
+with an absolute ``repro.`` import read as ``repro_torch.``), and the same
+deterministic scenarios run through both packages give equal results,
+compared exactly as plain data: a scheduler pool fed open-loop traffic,
+the cluster under each router policy, the joule attribution of a run,
+link and transport cycles, a roofline point and an interpreted IR module.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import math
+from pathlib import Path
+
+import pytest
+
+import repro.cluster as jcluster
+import repro.core.interp as jinterp
+import repro.core.ir as jir
+import repro.core.roofline as jroofline
+import repro.fabric.link as jlink
+import repro.fabric.transport as jtransport
+import repro.power.meter as jmeter
+import repro.power.model as jpower
+import repro.sched as jsched
+import repro_torch.cluster as tcluster
+import repro_torch.core.interp as tinterp
+import repro_torch.core.ir as tir
+import repro_torch.core.roofline as troofline
+import repro_torch.fabric.link as tlink
+import repro_torch.fabric.transport as ttransport
+import repro_torch.power.meter as tmeter
+import repro_torch.power.model as tpower
+import repro_torch.sched as tsched
+from repro.core.accelerators import REGISTRY as JREGISTRY
+from repro_torch.core.accelerators import REGISTRY as TREGISTRY
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+COPIED = [
+    "core/stats", "core/ir", "core/interp", "core/roofline",
+    "engine/resources", "engine/overlap",
+    "fabric/link", "fabric/transport",
+    "obs/metrics", "obs/attribution", "obs/monitor",
+    "power/model", "power/meter",
+    "sched/queue", "sched/telemetry", "sched/scheduler",
+    "cluster/traffic", "cluster/slo", "cluster/host", "cluster/router",
+    "bridge/driver", "bridge/report", "bridge/tenant",
+]
+
+
+# ------------------------------------------------------------ the copies
+
+
+class _Normalise(ast.NodeTransformer):
+    """Drops docstrings and reads an absolute ``repro`` import as
+    ``repro_torch``."""
+
+    @staticmethod
+    def _rename(name: str | None) -> str | None:
+        if name == "repro" or (name or "").startswith("repro."):
+            return "repro_torch" + name[len("repro"):]
+        return name
+
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = visit_FunctionDef = visit_AsyncFunctionDef = _strip
+
+    def visit_ImportFrom(self, node):
+        if node.level == 0:
+            node.module = self._rename(node.module)
+        return node
+
+    def visit_Import(self, node):
+        for alias in node.names:
+            alias.name = self._rename(alias.name)
+        return node
+
+
+def _code(path: Path) -> str:
+    return ast.dump(_Normalise().visit(ast.parse(path.read_text())))
+
+
+@pytest.mark.parametrize("module", COPIED)
+def test_copy_has_the_reference_code(module):
+    assert _code(SRC / "repro_torch" / f"{module}.py") == _code(SRC / "repro" / f"{module}.py")
+
+
+def _relative_imports(module: str) -> set[str]:
+    """Modules a reference module imports relatively, as ``pkg/mod`` paths,
+    lazy imports inside functions included."""
+    pkg = module.split("/")[:-1]
+    out = set()
+    for node in ast.walk(ast.parse((SRC / "repro" / f"{module}.py").read_text())):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0:
+            continue
+        base = pkg[:len(pkg) - node.level + 1]
+        target = base + (node.module.split(".") if node.module else [])
+        names = [a.name for a in node.names]
+        for name in names if not node.module else [None]:
+            path = "/".join(target + ([name] if name else []))
+            if (SRC / "repro" / f"{path}.py").exists():
+                out.add(path)
+        if node.module:
+            path = "/".join(target)
+            out.add(path if (SRC / "repro" / f"{path}.py").exists() else f"{path}/__init__")
+    return out
+
+
+def test_every_module_the_copies_reach_is_in_the_port():
+    """Following the copies' relative imports, lazy ones included, reaches
+    only modules the port has: a copy cannot fail at the first call of a
+    line that imports what the port lacks."""
+    seen, todo = set(), list(COPIED)
+    while todo:
+        mod = todo.pop()
+        if mod in seen:
+            continue
+        seen.add(mod)
+        if not mod.endswith("__init__"):
+            todo.extend(_relative_imports(mod))
+    missing = sorted(m for m in seen if not (SRC / "repro_torch" / f"{m}.py").exists())
+    assert not missing, missing
+    assert {"core/accelerators", "engine/costmodel", "sched/state_cache",
+            "power/meter", "core/roofline"} <= seen
+
+
+# ------------------------------------------------------------- plain data
+
+
+def plain(x, depth: int = 0):
+    """A value from either package as plain data: dataclasses and objects
+    become dicts of their fields under their class name, containers their
+    plain elements, callables their qualified name."""
+    assert depth < 40, "cycle"
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, tuple):
+        return tuple(plain(v, depth + 1) for v in x)
+    if isinstance(x, list):
+        return [plain(v, depth + 1) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted(plain(v, depth + 1) for v in x)
+    if isinstance(x, dict):
+        return {plain(k, depth + 1): plain(v, depth + 1) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        fields = {f.name: plain(getattr(x, f.name), depth + 1) for f in dataclasses.fields(x)}
+        return {"__class__": type(x).__name__, **fields}
+    if callable(x):
+        return getattr(x, "__qualname__", type(x).__name__)
+    if hasattr(x, "__dict__"):
+        return {"__class__": type(x).__name__, **plain(vars(x), depth + 1)}
+    return repr(x)
+
+
+def test_plain_data_tells_a_changed_field_apart():
+    a = jsched.LaunchRequest("t", (8, 8, 8), {"A": 1})
+    b = tsched.LaunchRequest("t", (8, 8, 8), {"A": 1})
+    assert a != b  # dataclasses of two packages never compare equal
+    assert plain(a) == plain(b)
+    assert plain(a) != plain(dataclasses.replace(b, extra={"A": 2}))
+
+
+# ------------------------------------------------------------- scenarios
+
+
+def _profiles(pkg):
+    return [pkg.TenantProfile(f"og{i}", dims=(8, 16, 16), accel="opengemm", slo_cycles=2_000.0,
+                              priority=i % 2)
+            for i in range(3)] + [
+        pkg.TenantProfile(f"gem{i}", dims=(16, 16, 32), accel="gemmini", slo_cycles=3_000.0)
+        for i in range(2)]
+
+
+def _traffic(pkg, process: str):
+    return pkg.generate(_profiles(pkg), rate=0.02, horizon=15_000, process=process, seed=7)
+
+
+@pytest.mark.parametrize("process", ["poisson", "bursty", "diurnal"])
+def test_traffic_is_the_references(process):
+    j, t = _traffic(jcluster, process), _traffic(tcluster, process)
+    assert len(j) > 20
+    assert plain(j) == plain(t)
+
+
+def _pool_report(sched, cluster, process):
+    pool = sched.Scheduler.from_registry({"opengemm": 2, "gemmini": 1}, link="noc")
+    rep = pool.run_open_loop(_traffic(cluster, process))
+    return rep, {
+        "makespan": rep.makespan,
+        "bytes_sent": rep.bytes_sent,
+        "bytes_elided": rep.bytes_elided,
+        "config_cycles": rep.config_cycles,
+        "preemptions": rep.preemptions,
+        "placements": rep.placements,
+        "launch_log": plain(rep.launch_log()),
+        "devices": plain(rep.devices),
+        "cache_stats": plain(rep.cache_stats),
+        "links": plain(rep.links),
+        "resources": plain(rep.resources),
+        "metrics": plain(rep.metrics),
+    }
+
+
+@pytest.mark.parametrize("process", ["poisson", "bursty", "diurnal"])
+def test_scheduler_pool_on_open_loop_traffic_is_the_references(process):
+    (_, j), (_, t) = _pool_report(jsched, jcluster, process), _pool_report(tsched, tcluster, process)
+    assert len(j["launch_log"]) > 20 and j["bytes_elided"] > 0
+    assert j == t
+
+
+def _cluster_run(cluster, power, policy: str, process: str = "bursty"):
+    profiles = _profiles(cluster)
+    c = cluster.Cluster.uniform(2, {"opengemm": 1, "gemmini": 1}, policy=policy, link="pcie",
+                                overlap="overlapped", power=power.PowerSpec.default())
+    reqs = cluster.generate(profiles, rate=0.03, horizon=12_000, process=process, seed=5)
+    return c.run(reqs, slo=cluster.slo_targets(profiles))
+
+
+def _cluster_numbers(rep) -> dict:
+    return {
+        "makespan": rep.makespan,
+        "launches": rep.launches,
+        "bytes_sent": rep.bytes_sent,
+        "bytes_elided": rep.bytes_elided,
+        "elision_ratio": rep.elision_ratio,
+        "preemptions": rep.preemptions,
+        "deadline_misses": rep.deadline_misses,
+        "config_cycles": rep.config_cycles,
+        "exposed_config_cycles": rep.exposed_config_cycles,
+        "port_utilization": rep.port_utilization,
+        "attainment": rep.attainment,
+        "goodput": rep.goodput,
+        "p50_queue": rep.queue_delay_percentile(50),
+        "p99_latency": rep.latency_percentile(99),
+        "placements": rep.placements(),
+        "tenants": plain(rep.tenants),
+        "records": plain(rep.records),
+        "roofline": plain(rep.roofline),
+        "traces": plain(rep.traces()),
+        "links": plain(rep.links),
+        "resources": plain(rep.resources),
+    }
+
+
+@pytest.mark.parametrize("policy", ["affinity", "round_robin", "jsq", "p2c"])
+def test_cluster_under_each_router_is_the_references(policy):
+    assert set(tcluster.ROUTERS) == set(jcluster.ROUTERS) == {"affinity", "round_robin", "jsq", "p2c"}
+    j = _cluster_numbers(_cluster_run(jcluster, jpower, policy))
+    t = _cluster_numbers(_cluster_run(tcluster, tpower, policy))
+    assert j["launches"] > 20 and len(j["placements"]) == 5
+    assert j == t
+
+
+@pytest.mark.parametrize("policy", ["affinity", "round_robin"])
+def test_energy_attribution_of_a_cluster_run_is_the_references(policy):
+    j = jmeter.attribute_energy(_cluster_run(jcluster, jpower, policy)).check()
+    t = tmeter.attribute_energy(_cluster_run(tcluster, tpower, policy)).check()
+    assert j.total_energy > 0 and len(j.lanes) > 4
+    assert (j.total_energy, j.max_residual) == (t.total_energy, t.max_residual)
+    assert plain(j.summary) == plain(t.summary)
+    assert plain(j.lanes) == plain(t.lanes)
+
+
+SIZES = [0, 1, 4, 7, 64, 100, 1_000, 4_096, 65_536]
+
+
+@pytest.mark.parametrize("link", ["csr", "noc", "pcie"])
+def test_link_and_transport_cycles_are_the_references(link):
+    jl, tl = jlink.resolve_link(link), tlink.resolve_link(link)
+    assert plain(jl) == plain(tl)
+    for n in SIZES:
+        assert jl.write_cycles(n) == tl.write_cycles(n)
+        if jl.supports_dma:
+            assert jl.burst_cycles(n) == tl.burst_cycles(n)
+        assert jl.mmio_cycles(n, 4) == tl.mmio_cycles(n, 4)
+        if jl.wc_depth >= 2:  # a link without a posted-write buffer has no wc price
+            assert jl.wc_cycles(n, 4) == tl.wc_cycles(n, 4)
+    for kind in ("opengemm", "gemmini"):
+        jm, tm = JREGISTRY[kind], TREGISTRY[kind]
+        for n in SIZES:
+            for mode in ("auto", "mmio", "burst", "wc"):
+                for objective in ("cycles", "joules", "edp"):
+                    assert plain(jtransport.plan_fields(n, jm, jl, mode, objective)) == \
+                        plain(ttransport.plan_fields(n, tm, tl, mode, objective))
+        assert jtransport.crossover_fields(jm, jl) == ttransport.crossover_fields(tm, tl)
+
+
+def test_roofline_points_are_the_references():
+    def points(rl):
+        return [
+            rl.processor_roofline(1024.0, 16.0, 3.5),
+            rl.concurrent_config_roofline(1024.0, 1.77, 200.0),
+            rl.sequential_config_roofline(1024.0, 1.77, 200.0),
+            rl.knee_point(1024.0, 1.77),
+            rl.config_bound(1024.0, 1.77, 200.0),
+            rl.effective_config_bandwidth(4096.0, 900.0, 350.0),
+            rl.decode_roofline_point("serve[t0]", tokens=30, ops_per_token=2.0 * 4 * 64 * 64 / 4,
+                                     descriptor_bytes=1_204, config_cycles=1_460.0,
+                                     makespan=1_337.0, p_peak=1024.0),
+            rl.energy_roofline_point("e", total_ops=1e6, config_bytes=512, config_energy=40.0,
+                                     total_energy=900.0, compute_power=3.0, p_peak=1024.0),
+        ]
+    j, t = points(jroofline), points(troofline)
+    assert j[6].i_oc > 0 and not math.isnan(j[6].performance)
+    assert plain(j) == plain(t)
+
+
+def _program(ir):
+    """Two setups of the same accelerator per iteration of a loop, the
+    second changing one field, then a final launch outside the loop."""
+    fn = ir.func("main")
+    top = fn.regions[0].block
+    c8, c16, lb, ub, step = (ir.constant(8), ir.constant(16), ir.constant(0, ir.INDEX),
+                             ir.constant(4, ir.INDEX), ir.constant(1, ir.INDEX))
+    for op in (c8, c16, lb, ub, step):
+        top.append(op)
+    loop = ir.for_(lb.result, ub.result, step.result)
+    top.append(loop)
+    body = loop.regions[0].block
+    s1 = ir.setup("opengemm", {"M": c8.result, "K": c8.result, "N": c16.result})
+    body.append(s1)
+    t1 = ir.launch(s1.result, "opengemm")
+    body.append(t1)
+    body.append(ir.await_(t1.result))
+    s2 = ir.setup("opengemm", {"M": c8.result, "K": c16.result, "N": c16.result})
+    body.append(s2)
+    t2 = ir.launch(s2.result, "opengemm")
+    body.append(t2)
+    body.append(ir.await_(t2.result))
+    body.append(ir.yield_([]))
+    s3 = ir.setup("gemmini", {"M": c16.result, "K": c16.result, "N": c16.result})
+    top.append(s3)
+    t3 = ir.launch(s3.result, "gemmini")
+    top.append(t3)
+    top.append(ir.await_(t3.result))
+    top.append(ir.return_())
+    return ir.Module(ops=[fn])
+
+
+def test_interpreting_an_ir_module_is_the_references():
+    j = jinterp.run(_program(jir), dict(JREGISTRY))
+    t = tinterp.run(_program(tir), dict(TREGISTRY))
+    assert len(j.invocations) == 9
+    assert (j.total_cycles, j.config_bytes, j.performance, j.i_oc) == \
+        (t.total_cycles, t.config_bytes, t.performance, t.i_oc)
+    assert j.log_signature() == t.log_signature()
+    assert plain(j) == plain(t)
+
+
+# ------------------------------------------------------------ from_arch
+
+
+def test_profile_from_arch_gives_the_references_tiles_for_qwen2():
+    j = jcluster.TenantProfile.from_arch("q", "qwen2-0.5b", accel="opengemm")
+    t = tcluster.TenantProfile.from_arch("q", "qwen2-0.5b", accel="opengemm")
+    assert t.dims == j.dims == (16, 64, 64)
+    assert plain(t) == plain(j)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "rwkv6-7b", "whisper-medium", "no-such-arch"])
+def test_profile_from_arch_of_an_unported_family_points_at_the_roadmap(arch):
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        tcluster.TenantProfile.from_arch("x", arch)

@@ -1,6 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-serves on the CPU with both made unimportable, through the serving engine
-and through ``python -m repro_torch.launch.serve`` in each of its modes."""
+serves on the CPU with both made unimportable, through the serving engine,
+through ``python -m repro_torch.launch.serve`` in each of its modes, and
+through the closed-loop bridge into the port's copy of the cluster model
+(its report's energy and roofline views import their modules lazily, so
+the run calls them)."""
 
 from __future__ import annotations
 
@@ -31,10 +34,25 @@ import runpy
 for mode in ("sequential", "concurrent", "fused"):  # python -m repro_torch.launch.serve
     sys.argv = ["serve", "--device", "cpu", "--reduced", "--steps", "6", "--mode", mode]
     runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+from repro_torch.bridge import ClosedLoopDriver, TenantEngine
+from repro_torch.cluster import Cluster
+tenants = []
+for i in range(2):
+    e = ServingEngine(model, model.init(0), max_slots=4, max_len=32, prefill_chunk=2)
+    for uid, p in enumerate([[3 + i, 5, 2], [7, 1 + i]]):
+        e.submit(Request(uid=uid, prompt=p, max_new_tokens=3))
+    tenants.append(TenantEngine(f"t{i}", e, accel="opengemm"))
+rep = ClosedLoopDriver(tenants, Cluster.uniform(2, {"opengemm": 1}, policy="affinity",
+                                                sticky=True, link="noc")).run()
+assert rep.tokens == 12 and rep.tokens_per_kcycle > 0, rep.tokens
+assert all(p["matched"] for p in rep.config_parity().values()), rep.config_parity()
+assert rep.energy_report().check().total_energy > 0
+assert [pt.name for pt in rep.serving_roofline()] == ["serve[t0]", "serve[t1]"]
+assert len(rep.serving_energy_roofline()) == 2
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print("served", len(done))
+print("served", len(done), "bridged", rep.tokens)
 """
 
 
@@ -43,7 +61,7 @@ def test_port_serves_with_jax_and_repro_unimportable():
     out = subprocess.run([sys.executable, "-c", _SERVE_WITHOUT_JAX], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "served 3" in out.stdout
+    assert "served 3 bridged 12" in out.stdout
     for mode, steps in (("sequential", 5), ("concurrent", 5), ("fused", 0)):
         assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
 
@@ -75,7 +93,9 @@ def test_port_calibrates_on_the_cpu_with_jax_and_repro_unimportable(tmp_path):
 def test_no_source_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    assert {"bridge/report.py", "bridge/descriptors.py", "cluster/router.py", "power/meter.py",
+            "core/interp.py"} <= {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
+                                  for f in files[:-1]}
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in banned.finditer(f.read_text())]
     assert not offenders, offenders
