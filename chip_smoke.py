@@ -81,6 +81,24 @@ Phases, each printing its results; any failure exits non-zero:
    must hold for every tenant of the sticky arms, and greedy_sample must
    launch once per fused decode launch (counted from 0 for each arm); the
    record's ``launches_bridge`` sums the fused arms.
+11. MoE: phi3.5-moe-42b-a6.6b at its published widths cut to 16 of its 32
+   layers (42.14 GB of bf16 weights, seeded on the card; all 32 would not
+   fit), after the qwen2-0.5b model is freed. top_k exactly against its
+   plain version at the router's shapes ((4, 16) and (16, 16) f32, k = 2,
+   and exact ties, where the lowest expert index must win), timed at
+   (4, 16) beside torch.topk; one masked fused decode step under
+   ``torch.cuda.set_sync_debug_mode("error")``; ``forward`` against
+   teacher-forced ``decode_step`` at drop-free capacity, every router call
+   recorded (``_moe_parity`` says what it holds); the serving engine
+   (4 requests of 16-32 seeded tokens, 16 new tokens, 4 slots × 512,
+   prefill chunk 8) fused then host-sampled, with bit-identical streams,
+   greedy_sample once per fused decode launch and top_k 16 times an eager
+   step (prefill steps included), counted from 0 just before each run and
+   read just after; its tokens/s, decode-only step and peak memory; then
+   the serving loop's three modes as in 6 (batch 4, 32 steps, fuse 8),
+   the fused mode profiled. The model is freed at the end. The record's
+   top_k ``launches`` are this path's (``launches_ops``: the ops path's),
+   and its ``router_*`` keys the router shape's times and bound.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -114,6 +132,10 @@ PARITY_RTOL, PARITY_ATOL, PARITY_TOP1 = 0.05, 0.15, 0.9  # test_decode_parity's
 SERVE_BATCH, SERVE_STEPS, SERVE_CACHE, SERVE_FUSE = 4, 64, 256, 8  # python -m repro_torch.launch.serve's defaults
 # the serving-bridge benchmark's first cell (benchmarks/serving_bridge.py)
 BRIDGE_TENANTS, BRIDGE_HOSTS, BRIDGE_SLOTS, BRIDGE_MAX_LEN, BRIDGE_MAX_NEW = 6, 2, 4, 64, 10
+# the [moe] phase: phi-3.5-MoE at its published widths, 16 of its 32 layers
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
+MOE_STEPS, MOE_CACHE = 32, 64  # launch.serve: batch and fuse as the command's defaults
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
     ("round_robin", "round_robin", False, "fused", 8),
@@ -771,13 +793,14 @@ def check_top_k(smi: str) -> dict:
                    k=8, ms_k1=timed[1][0]["ms"], ms_k64=timed[K_MAX][0]["ms"])
 
 
-def _requests(cfg) -> list[tuple[int, list[int]]]:
+def _requests(cfg, n: int = N_REQUESTS, lengths: tuple = (16, 97)) -> list[tuple[int, list[int]]]:
     rng = np.random.default_rng(SEED)
-    return [(uid, rng.integers(0, cfg.vocab_size, int(rng.integers(16, 97))).tolist())
-            for uid in range(N_REQUESTS)]
+    return [(uid, rng.integers(0, cfg.vocab_size, int(rng.integers(*lengths))).tolist())
+            for uid in range(n)]
 
 
-def _serve(model, params, reqs, sampling: str, max_new: int = MAX_NEW) -> dict:
+def _serve(model, params, reqs, sampling: str, max_new: int = MAX_NEW,
+           tag: str = "[serve]") -> dict:
     from repro_torch.serving import Request, ServingEngine
 
     decode_launches = []
@@ -800,12 +823,13 @@ def _serve(model, params, reqs, sampling: str, max_new: int = MAX_NEW) -> dict:
     wall = time.perf_counter() - t0
     done = {r.uid: r.generated for r in engine.finished}
     n_tok = sum(len(g) for g in done.values())
-    print(f"[serve] sampling={sampling}: {len(done)} requests, {n_tok} tokens in "
+    print(f"{tag} sampling={sampling}: {len(done)} requests, {n_tok} tokens in "
           f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; {len(decode_launches)} decode "
           f"launches, {engine.executor.launches - len(decode_launches)} prefill launches; "
           f"decode-only step median {np.median(decode_ms):.3f} ms over "
           f"{len(decode_ms)} steps; config_traffic={engine.config_traffic()}")
-    return {"streams": done, "decode_launches": len(decode_launches)}
+    return {"streams": done, "decode_launches": len(decode_launches),
+            "prefill_launches": engine.executor.launches - len(decode_launches)}
 
 
 def phase_main_path(model, params) -> dict:
@@ -854,16 +878,17 @@ def phase_numerics(model, params) -> None:
         raise SystemExit(f"top-1 agreement {top1} < {PARITY_TOP1}")
 
 
-def _eager_fused_ids(model, params, fuse: int) -> torch.Tensor:
+def _eager_fused_ids(model, params, fuse: int, steps: int = SERVE_STEPS,
+                     cache_len: int = SERVE_CACHE) -> torch.Tensor:
     """The serve loop's fused schedule as a plain loop of ``decode_step``
     and ``sample_op`` calls with an int position: the warm-up's ``fuse``
     steps feed each other, then the tokens restart from ones at ``fuse``."""
     from repro_torch.kernels import ops
 
-    cache = model.init_cache(SERVE_BATCH, SERVE_CACHE)
+    cache = model.init_cache(SERVE_BATCH, cache_len)
     ones = torch.ones((SERVE_BATCH, 1), dtype=torch.int32, device=model.device)
     tokens, ids = ones, []
-    for pos in range(max(SERVE_STEPS, fuse)):
+    for pos in range(max(steps, fuse)):
         logits, cache = model.decode_step(params, cache, tokens, pos)
         tokens = ops.sample_op(logits[:, -1])[:, None]
         if pos >= fuse:
@@ -889,10 +914,13 @@ def _profiled(fn, steps_run: int) -> dict:
             "busy_ms": sum(r.self_device_time_total for r in device) / 1e3 / steps_run}
 
 
-def phase_serve_modes(model, params, smi: str) -> None:
+def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
+                      cache_len: int = SERVE_CACHE, tag: str = "[serve-modes]",
+                      profiled: tuple = ("sequential", "fused", "fused fuse=1")) -> None:
     """``python -m repro_torch.launch.serve``'s loop, through ``serve()``, in
     each mode at full width, with greedy_sample's count set to 0 just before
-    each run and read just after."""
+    each run and read just after; then the ``profiled`` modes' short runs
+    under torch.profiler."""
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.launch.serve import serve
 
@@ -901,12 +929,12 @@ def phase_serve_modes(model, params, smi: str) -> None:
                               ("concurrent", "concurrent", SERVE_FUSE),
                               ("fused", "fused", SERVE_FUSE), ("fused fuse=1", "fused", 1)):
         greedy_sample.launches = 0
-        run = serve(model, params, batch=SERVE_BATCH, steps=SERVE_STEPS, cache_len=SERVE_CACHE,
+        run = serve(model, params, batch=SERVE_BATCH, steps=steps, cache_len=cache_len,
                     mode=mode, fuse=fuse)
         counted = greedy_sample.launches
         graphs = "".join(f"; graph k={g.k}: {g.launches} greedy_sample launches captured, "
                          f"{g.replays} replays" for g in run.graphs)
-        print(f"[serve-modes] mode={label} batch={SERVE_BATCH} steps={run.produced}: "
+        print(f"{tag} mode={label} batch={SERVE_BATCH} steps={run.produced}: "
               f"{run.wall_s * 1e3:.3f} ms total, {run.tokens_per_s:.1f} tok/s "
               f"({run.ms_per_step:.4f} ms/step); device {run.device_ms / run.produced:.4f} "
               f"ms/step (CUDA events around the timed loop); host issue a launch, over "
@@ -920,7 +948,7 @@ def phase_serve_modes(model, params, smi: str) -> None:
         if counted == 0 or run.sample_launches != run.produced:
             raise SystemExit(f"serve {label} launched greedy_sample {run.sample_launches} times "
                              f"for {run.produced} steps")
-        if tuple(run.ids.shape) != (SERVE_STEPS - (fuse if mode == "fused" else 1), SERVE_BATCH) \
+        if tuple(run.ids.shape) != (steps - (fuse if mode == "fused" else 1), SERVE_BATCH) \
                 or not bool(((run.ids >= 0) & (run.ids < model.cfg.vocab_size)).all()):
             raise SystemExit(f"serve {label} gave ids of shape {tuple(run.ids.shape)} outside "
                              f"the vocabulary")
@@ -931,23 +959,26 @@ def phase_serve_modes(model, params, smi: str) -> None:
     for label in ("concurrent", "fused fuse=1"):
         if not torch.equal(runs[label].ids, seq):
             raise SystemExit(f"serve {label} ids differ from sequential's")
-    if not torch.equal(runs["fused"].ids, _eager_fused_ids(model, params, SERVE_FUSE)):
+    if not torch.equal(runs["fused"].ids, _eager_fused_ids(model, params, SERVE_FUSE, steps,
+                                                           cache_len)):
         raise SystemExit("fused serving's graph replays differ from the same schedule run eagerly")
-    print(f"[serve-modes] sequential, concurrent and fused fuse=1 ids bit-identical "
+    print(f"{tag} sequential, concurrent and fused fuse=1 ids bit-identical "
           f"({tuple(seq.shape)}); fused fuse={SERVE_FUSE} ids equal the eager schedule's "
           f"({tuple(runs['fused'].ids.shape)}); first steps {seq[:3].tolist()}")
 
     # short runs under torch.profiler: what a step costs the card, against
     # the timed runs' device ms a step (the rest is the card idle)
-    short = {"batch": SERVE_BATCH, "cache_len": SERVE_CACHE}
+    short = {"batch": SERVE_BATCH, "cache_len": cache_len}
     for label, run, kw, steps_run in (
             ("sequential", runs["sequential"], dict(mode="sequential", steps=9), 9),
             ("fused", runs["fused"], dict(mode="fused", steps=3 * SERVE_FUSE, fuse=SERVE_FUSE),
              3 * SERVE_FUSE),
             ("fused fuse=1", runs["fused fuse=1"], dict(mode="fused", steps=9, fuse=1), 9)):
+        if label not in profiled:
+            continue
         prof = _profiled(lambda: serve(model, params, **short, **kw), steps_run)
         step_ms = run.device_ms / run.produced
-        print(f"[serve-modes] profile, mode={label}, {steps_run} steps (warm-up included): "
+        print(f"{tag} profile, mode={label}, {steps_run} steps (warm-up included): "
               f"{prof['ops']:.1f} device ops a step, busy {prof['busy_ms']:.4f} ms a step; "
               f"against the timed run's {step_ms:.4f} device ms a step the card is idle "
               f"{1 - prof['busy_ms'] / step_ms:.3f} of it ({smi})")
@@ -1179,6 +1210,227 @@ def phase_bridge(model, params, smi: str) -> int:
     return fused_launches
 
 
+def _moe_router_check(smi: str) -> dict:
+    """top_k against its plain version at the router's shapes, ids and
+    values exactly: (4, 16) and (16, 16) f32 probabilities with k = 2, and
+    rows of exact ties, where the lowest expert index must win; then timed
+    at the decode shape (4, 16) beside torch.topk."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sampling import plan_top_k, top_k
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    ties = torch.softmax(torch.tensor([[1.0, 3.0, 2.0, 3.0] * 4] * 4, device="cuda"), -1)
+    cases = {f"({t}, 16)": torch.softmax(torch.randn((t, 16), generator=gen, device="cuda"), -1)
+             for t in (4, 16)}
+    cases["(4, 16) exact ties"] = ties
+    for label, x in cases.items():
+        got_v, got_i = top_k(x, 2)
+        want_v, want_i = ref.top_k_ref(x, 2)
+        torch.cuda.synchronize()
+        print(f"[moe] top_k router {label} f32 k=2: blocks per row="
+              f"{plan_top_k(*x.shape, 2).splits} ids {got_i[0].tolist()} "
+              f"exact={torch.equal(got_i, want_i) and torch.equal(got_v, want_v)}")
+        torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+        torch.testing.assert_close(got_v, want_v, rtol=0, atol=0)
+    if got_i.tolist() != [[1, 3]] * 4:
+        raise SystemExit(f"top_k broke exact router ties as {got_i.tolist()}, not [1, 3]")
+    x = cases["(4, 16)"]
+    bound = _bound_ms(x.numel() * 4 + x.shape[0] * 2 * 8, 0.0, 1.0)
+    ms = _timed("top_k router (4, 16) f32 k=2", {
+        "ms": lambda: top_k(x, 2), "plain_ms": lambda: ref.top_k_ref(x, 2),
+        "library_ms": lambda: torch.topk(x, 2)}, *bound, smi)
+    return {"router_ms": ms["ms"], "router_plain_ms": ms["plain_ms"],
+            "router_library_ms": ms["library_ms"], "router_bound_ms": bound[0]}
+
+
+def _moe_parity(model, params, b: int = 2, s: int = 8) -> None:
+    """``forward`` against teacher-forced ``decode_step`` at drop-free
+    capacity (``test_decode_parity``'s), every router call recorded. On the
+    card the two paths multiply 16 rows against 2 in other kernels, so their
+    bf16 activations round apart, and among 16 experts a row whose 2nd and
+    3rd probabilities lie closer than that gap may take another expert in
+    one path; from there that token's numbers part. The check: every token
+    the two paths route alike in every layer (at least half of them) agrees
+    at test_decode_parity's tolerances and top-1, where a token whose top
+    two logits lie within twice its own largest logit gap between the paths
+    counts as agreeing (a 32,064-way argmax of random weights ties often);
+    each other token's first differing route lies at a tie closer than
+    twice the largest probability gap of the rows routed alike (rounding,
+    not another computation)."""
+    from repro_torch.models import layers as L
+
+    k = model.cfg.experts_per_token
+    calls, route = [], L._moe_route
+
+    def recorded(p, cfg, xt):
+        out = route(p, cfg, xt)
+        probs = torch.softmax((xt.double() @ p["router"].double()).float(), dim=-1)
+        calls.append((probs.cpu().numpy(), out[1].cpu().numpy()))
+        return out
+
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 8)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen, device=model.device)
+    L._moe_route = recorded
+    try:
+        logits, aux = model.forward(params, {"tokens": tokens})
+        cache = model.init_cache(b, s)
+        steps = []
+        for i in range(s):
+            lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1], i)
+            steps.append(lg[:, 0])
+    finally:
+        L._moe_route = route
+    n = model.cfg.n_layers
+    fwd, dec = calls[:n], calls[n:]  # forward: one call a layer; decode: step-major
+    first_flip, gaps = {}, []  # (row, pos) -> (layer, margin), gaps of rows routed alike
+    for layer in range(n):
+        fp = fwd[layer][0].reshape(b, s, -1)
+        fe = np.sort(fwd[layer][1].reshape(b, s, k), -1)
+        for i in range(s):
+            dp, de = dec[i * n + layer]
+            for r in range(b):
+                if (r, i) in first_flip:
+                    continue
+                top = np.sort(fp[r, i])[::-1]
+                if not np.array_equal(fe[r, i], np.sort(de[r])):
+                    first_flip[(r, i)] = (layer, float(top[k - 1] - top[k]))
+                else:
+                    gaps.append((r, i, float(np.abs(fp[r, i] - dp[r]).max())))
+    alike = [(r, i) for r in range(b) for i in range(s) if (r, i) not in first_flip]
+    a = logits.float().cpu().numpy()
+    d = torch.stack(steps, 1).float().cpu().numpy()
+    if 2 * len(alike) < b * s or not np.isfinite(a).all() or not np.isfinite(float(aux)):
+        raise SystemExit(f"MoE forward and decode routed {len(first_flip)} of {b * s} tokens apart "
+                         f"({first_flip}), or gave non-finite values")
+    gap = max(g for r, i, g in gaps if (r, i) in alike)
+    rows, cols = zip(*alike)
+    fa, fd = a[rows, cols], d[rows, cols]
+    top1_all = float((a.argmax(-1) == d.argmax(-1)).mean())
+    same = fa.argmax(-1) == fd.argmax(-1)
+    top2 = np.sort(fa, -1)[:, -2:]  # forward's top two logits of each token
+    tie = top2[:, 1] - top2[:, 0] <= 2 * np.abs(fa - fd).max(-1)
+    top1 = float(same.mean())
+    top1_ties = float((same | tie).mean())
+    print(f"[moe] forward vs decode_step B={b} S={s}, capacity factor {model.cfg.capacity_factor}: "
+          f"{len(alike)} of {b * s} tokens routed alike in all {n} layers; on them "
+          f"max_abs_diff={np.abs(fa - fd).max():.6f}, top1 agreement={top1:.4f}, "
+          f"{top1_ties:.4f} with ties under the two paths' own logit gap counted as agreeing "
+          f"(all tokens: max_abs_diff={np.abs(a - d).max():.6f}, top1={top1_all:.4f}); "
+          f"largest probability gap of the rows routed alike {gap:.6f}; first differing routes "
+          f"(row, position): layer, 2nd-3rd margin {first_flip}; aux={float(aux):.6f}, "
+          f"finite={bool(np.isfinite(a).all())}")
+    np.testing.assert_allclose(fa, fd, rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    if top1_ties < PARITY_TOP1:
+        raise SystemExit(f"MoE top-1 agreement {top1_ties} < {PARITY_TOP1} on the tokens routed "
+                         f"alike, ties counted as agreeing")
+    wide = {t: m for t, (layer, m) in first_flip.items() if m > 2 * gap}
+    if wide:
+        raise SystemExit(f"MoE forward and decode routed tokens apart at margins {wide}, wider "
+                         f"than twice the rounding gap {gap}")
+
+
+def phase_moe(smi: str) -> dict:
+    """The MoE family at its published widths: phi-3.5-MoE cut to 16 of its
+    32 layers (the first of two pipeline stages of a two-card deployment;
+    all 32 would not fit one card), seeded weights. Forward against
+    teacher-forced decode at drop-free capacity; the router's top_k at its
+    shapes; one eager fused step under ``set_sync_debug_mode("error")``
+    (nothing may read the card back, or capture breaks); the serving engine
+    fused and host-sampled on the same requests, with greedy_sample and
+    top_k counted from 0 just before the fused run and read just after;
+    ``launch.serve``'s loop in its three modes. Frees the model at the end."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.sampling import greedy_sample, top_k
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    full = get(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    n = cfg.param_count()
+    print(f"[moe] {MOE_ARCH}: depth cut to {cfg.n_layers} of {full.n_layers} layers (the first "
+          f"of two pipeline stages); widths as published: d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} KV heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.experts_per_token}, vocab {cfg.vocab_size}, "
+          f"capacity factor {cfg.capacity_factor}; {n} parameters, {2 * n / 1e9:.2f} GB in "
+          f"bf16 (all {full.n_layers} layers: {2 * full.param_count() / 1e9:.2f} GB)")
+    router = _moe_router_check(smi)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ti = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    print(f"[moe] seeded weights drawn on the card in {time.perf_counter() - ti:.2f} s; "
+          f"memory_allocated={torch.cuda.memory_allocated()} B, max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B")
+
+    # one eager fused step with every read-back refused
+    b = SERVE_BATCH
+    cache = model.init_cache(b, MOE_CACHE)
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    overrides = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 3, 5, 0], dtype=torch.int32, device="cuda")
+    live = torch.tensor([True, True, True, False], device="cuda")
+    model.decode_and_sample(params, cache, ones, overrides, live, pos, live)  # builds, warms
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_and_sample(params, cache, ones, overrides, live, pos, live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del cache
+    print("[moe] one masked fused decode step under set_sync_debug_mode('error'): no read-back")
+
+    _moe_parity(Model(dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)),
+                      device="cuda"), params)
+
+    # the serving engine, fused then host-sampled
+    reqs = _requests(cfg, MOE_REQUESTS, MOE_PROMPT)
+    _serve(model, params, reqs[:1], "fused", max_new=2, tag="[moe]")  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    greedy_sample.launches = top_k.launches = 0
+    fused = _serve(model, params, reqs, "fused", max_new=MOE_NEW, tag="[moe]")
+    counted = {"greedy_sample": greedy_sample.launches, "top_k": top_k.launches}
+    eager_steps = fused["decode_launches"] + 8 * fused["prefill_launches"]
+    print(f"[moe] launches in the fused run: {counted}; {fused['decode_launches']} fused decode "
+          f"launches, {fused['prefill_launches']} prefill launches of 8 steps, so "
+          f"{eager_steps} eager steps of {cfg.n_layers} routers; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B")
+    if counted["greedy_sample"] != fused["decode_launches"] or counted["greedy_sample"] == 0:
+        raise SystemExit("the MoE engine did not launch greedy_sample once per fused decode launch")
+    if counted["top_k"] != cfg.n_layers * eager_steps:
+        raise SystemExit(f"the MoE engine launched top_k {counted['top_k']} times for "
+                         f"{eager_steps} eager steps of {cfg.n_layers} layers")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != MOE_NEW:
+            raise SystemExit(f"MoE request {uid} finished with {len(fused['streams'][uid])} tokens")
+    top_k.launches = 0
+    host = _serve(model, params, reqs, "host", max_new=MOE_NEW, tag="[moe]")
+    host_steps = host["decode_launches"] + 8 * host["prefill_launches"]
+    if host["streams"] != fused["streams"]:
+        raise SystemExit("MoE fused and host sampling gave different token streams")
+    if top_k.launches != cfg.n_layers * host_steps:
+        raise SystemExit(f"the host-sampled MoE engine launched top_k {top_k.launches} times "
+                         f"for {host_steps} eager steps")
+    print(f"[moe] fused and host token streams are bit-identical; top_k launched "
+          f"{cfg.n_layers} times an eager step in both runs; first stream "
+          f"{fused['streams'][0][:8]}")
+
+    phase_serve_modes(model, params, smi, steps=MOE_STEPS, cache_len=MOE_CACHE, tag="[moe]",
+                      profiled=("fused",))
+    del model, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"[moe] phase took {took:.1f} s; memory_allocated after freeing the model="
+          f"{torch.cuda.memory_allocated()} B")
+    return {"top_k": counted["top_k"], "greedy_sample": counted["greedy_sample"], **router}
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -1207,10 +1459,18 @@ def main() -> None:
           f"{calibration['greedy_sample']} (the record's count is the serving path's)")
     launches.update(phase_ops_path(model, params))
     bridge_launches = phase_bridge(model, params, smi)
+    del model, params
+    torch.cuda.empty_cache()
+    moe = phase_moe(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
             record["launches_bridge"] = bridge_launches
+            record["launches_moe"] = moe.pop("greedy_sample")
+        if record["name"] == "top_k":  # the MoE router's launches: this path's kernel now
+            record["launches_ops"] = record["launches"]
+            record["launches"] = moe.pop("top_k")
+            record.update(moe)  # the router shape's times and bound
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": records}))
     print(smi)

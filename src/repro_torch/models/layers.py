@@ -1,15 +1,18 @@
-"""Neural building blocks of the dense family, as plain functions on tensors.
+"""Neural building blocks of the dense and MoE families, as plain functions
+on tensors.
 
-The counterpart of ``repro/models/layers.py`` for the layers a dense GQA
-transformer runs: norms, rotary embedding, attention with a per-slot KV
-cache, and the SwiGLU MLP. Parameters are plain dicts of tensors with the
-reference's names and layouts, so a test can load the reference's weights
-and compare like with like.
+The counterpart of ``repro/models/layers.py`` for the layers a dense or MoE
+GQA transformer runs: norms, rotary embedding, attention with a per-slot KV
+cache, the SwiGLU MLP, and the top-k token-choice MoE MLP with its
+sort-based, capacity-limited dispatch. Parameters are plain dicts of
+tensors with the reference's names and layouts, so a test can load the
+reference's weights and compare like with like.
 
 Compute dtype is bf16, with the same f32 islands as the reference: norm and
-rope math in f32, attention scores and softmax in f32 and then cast to bf16.
-int8 KV, ``chunked_attention``, MoE, Mamba and RWKV are not ported yet
-(``ROADMAP.md``, Queue 1).
+rope math in f32, attention scores and softmax in f32 and then cast to bf16,
+the MoE router in f32. int8 KV, ``chunked_attention``, the MoE
+``shard_map`` all-to-all, Mamba and RWKV are not ported yet (``ROADMAP.md``,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -123,9 +127,13 @@ def masked_cache_write(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor,
     padded prefill step, or a resident slot riding along another slot's
     prefill chunk): its write goes to its row 0 and carries the value
     already there, so its cache stays bit-identical and no host sync is
-    needed to pick the selected rows. The reference writes every row and
-    then restores the masked ones (``Model._masked_cache``), and XLA drops
-    out-of-range writes that PyTorch would reject."""
+    needed to pick the selected rows. A selected slot past the cache raises
+    (``IndexError``; a device assert on a card). The reference writes every
+    row, attends with it and then restores the masked ones
+    (``Model._masked_cache``), and XLA drops out-of-range writes that
+    PyTorch would reject; :func:`attention_apply` gives a masked-out slot
+    its own K/V at its position in what it attends to, so it computes the
+    reference's numbers all the same."""
     rows = torch.arange(buf.shape[0], device=buf.device)
     pos = pos.long()
     new = val[:, 0].to(buf.dtype)
@@ -150,7 +158,10 @@ def attention_apply(
     training forward runs it. With ``cache`` ({"k","v": (B, S_max, Hkv, D)},
     updated in place) and ``cache_pos`` ((B,) per-slot positions): one new
     token per slot, written at its position (only where ``update_mask``
-    selects), attending to the cache rows up to its position."""
+    selects), attending to the cache rows up to its position. Every slot,
+    a masked-out one too, attends with its own new K/V at its position, as
+    the reference's do: under MoE the rows meet in one capacity-limited
+    expert buffer, so a masked row's numbers reach the live rows."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -167,17 +178,25 @@ def attention_apply(
     else:  # continuous batching: each row at its own position
         k = rope(k, cache_pos[:, None].expand(k.shape[:2]), cfg.rope_theta)
 
+    b, s = x.shape[:2]
     if cache is not None:
         masked_cache_write(cache["k"], k, cache_pos, update_mask)
         masked_cache_write(cache["v"], v, cache_pos, update_mask)
-        k, v = cache["k"], cache["v"]
+        cols = torch.arange(cache["k"].shape[1], device=x.device)[None, :]  # (1, T)
+        if update_mask is None:  # every row is in place already
+            k, v = cache["k"], cache["v"]
+        else:  # each row's own K/V at its position, where the reference wrote it
+            # before attending; a row past the cache has no mark, so nothing is
+            # added, as XLA drops that write
+            own = (cols == cache_pos[:, None])[:, :, None, None]  # (B, T, 1, 1)
+            k = torch.where(own, k.to(cache["k"].dtype), cache["k"])
+            v = torch.where(own, v.to(cache["v"].dtype), cache["v"])
 
-    b, s = x.shape[:2]
     scores = gqa_scores(q, k, hkv).float()
     t = k.shape[1]
     if cache is not None:
         # mask out cache slots past each slot's current position
-        valid = torch.arange(t, device=x.device)[None, :] <= cache_pos[:, None]  # (B, T)
+        valid = cols <= cache_pos[:, None]  # (B, T)
         scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
     else:
         mask = torch.ones((s, t), dtype=torch.bool, device=x.device).tril()
@@ -203,3 +222,117 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
 
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts MLP (top-k token-choice with capacity, sort-based
+# dispatch, as the reference formulates it)
+# --------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
+    """An f32 router (d, E) and bf16 experts (E, d, ff) / (E, ff, d), each
+    scaled by its per-expert fan-in, under a leading ``stack`` axis. The
+    experts are drawn one layer at a time into the stacked bf16 tensor: a
+    stacked f32 draw of full-width experts would not fit beside them."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def experts(shape: tuple[int, ...]) -> torch.Tensor:
+        out = torch.empty((stack, *shape), dtype=COMPUTE_DTYPE, device=gen.device)
+        for i in range(stack):
+            out[i] = _dense_init(gen, shape, scale_axis=1)
+        return out
+
+    return {
+        "router": _dense_init(gen, (d, e), stack=stack).float(),
+        "wi": experts((e, d, ff)),
+        "wg": experts((e, d, ff)),
+        "wo": experts((e, ff, d)),
+    }
+
+
+def _moe_route(params: dict, cfg: ModelConfig, xt: torch.Tensor):
+    """Shared router: returns (top_p, top_e, aux_loss). xt: (T, d).
+
+    The top-k runs through ``kernels.ops.top_k_op`` (the hand-written
+    ``top_k`` on a card, its stable sort on the CPU), in ``lax.top_k``'s
+    order, never ``torch.topk``, whose order on ties differs. The router
+    product sums in float64 and rounds to float32: at least float32's
+    precision whatever the process's TF32 setting, as a TF32 product would
+    flip routes (PyTorch's TF32 switches are global, and its two APIs for
+    them refuse to be mixed)."""
+    k, e = cfg.experts_per_token, cfg.n_experts
+    logits = (xt.double() @ params["router"].double()).float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = kernel_ops.top_k_op(probs, k)  # (T, k) f32, int32
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    # load-balancing auxiliary loss (Switch-style)
+    me = torch.mean(probs, dim=0)
+    first = top_e[:, :1] == torch.arange(e, dtype=top_e.dtype, device=xt.device)
+    ce = torch.mean(first.float(), dim=0)
+    aux = e * torch.sum(me * ce)
+    return top_p, top_e, aux
+
+
+def _moe_dispatch(cfg: ModelConfig, xt: torch.Tensor, top_p: torch.Tensor,
+                  top_e: torch.Tensor, capacity: int):
+    """Sort-based dispatch; returns (buf (E,C,d), se, sp, st, slot, keep).
+
+    The reference's semantics exactly: a stable sort by expert (ties keep
+    the lower flat index), each expert's first slot by a left-side search,
+    ``keep`` where the position within the expert is below ``capacity``
+    (dropped entries point at slot 0 and add zeros), and a scatter-add of
+    the kept rows into a zero buffer. Nothing here reads a device value
+    back to the host, so a CUDA graph can capture it."""
+    t, d = xt.shape
+    k, e = cfg.experts_per_token, cfg.n_experts
+    flat_e = top_e.reshape(-1).long()  # (T*k,)
+    flat_p = top_p.reshape(-1)
+    token_idx = torch.arange(t * k, device=xt.device) // k  # each token k times
+    order = torch.argsort(flat_e, stable=True)  # group by expert
+    se, sp, st = flat_e[order], flat_p[order], token_idx[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=xt.device))  # first slot of each expert
+    pos = torch.arange(t * k, device=xt.device) - starts[se]  # position within expert
+    keep = pos < capacity
+    slot = torch.where(keep, pos, 0)
+    buf = torch.zeros((e, capacity, d), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((se, slot), xt[st] * keep[:, None].to(xt.dtype), accumulate=True)
+    return buf, se, sp, st, slot, keep
+
+
+def _moe_ffn(params: dict, buf: torch.Tensor) -> torch.Tensor:
+    h = torch.einsum("ecd,edf->ecf", buf, params["wg"])
+    g = torch.einsum("ecd,edf->ecf", buf, params["wi"])
+    return torch.einsum("ecf,efd->ecd", F.silu(h) * g, params["wo"])
+
+
+def _moe_combine(cfg: ModelConfig, yb: torch.Tensor, se, sp, st, slot, keep,
+                 t: int, d: int) -> torch.Tensor:
+    """Each kept entry's expert output times its weight, rounded to bf16
+    first as the reference rounds it, summed into its token's row. A token
+    gets ``k`` terms (a dropped one adds zero); at k = 2 the sum does not
+    depend on the order of the adds."""
+    out_tok = yb[se, slot] * (sp * keep)[:, None].to(yb.dtype)
+    return torch.zeros((t, d), dtype=yb.dtype, device=yb.device).index_put_(
+        (st,), out_tok, accumulate=True)
+
+
+def moe_apply(params: dict, cfg: ModelConfig,
+              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_loss). x: (B, S, d).
+
+    The reference's ``gspmd`` formulation: every token of the batch routes
+    into one (E, C, d) buffer of ``C = max(int(capacity_factor·T·k/E), 1)``
+    slots an expert, and every expert's buffer goes through the FFN.
+    ``moe_impl="shard_map"`` runs this same path, as the reference does
+    with no mesh in scope; its all-to-all across devices is not ported."""
+    b, s, d = x.shape
+    t = b * s
+    k, e = cfg.experts_per_token, cfg.n_experts
+    xt = x.reshape(t, d)
+    top_p, top_e, aux = _moe_route(params, cfg, xt)
+    capacity = max(int(cfg.capacity_factor * t * k / e), 1)
+    buf, se, sp, st, slot, keep = _moe_dispatch(cfg, xt, top_p, top_e, capacity)
+    yb = _moe_ffn(params, buf)
+    out = _moe_combine(cfg, yb, se, sp, st, slot, keep, t, d)
+    return out.reshape(b, s, d), aux

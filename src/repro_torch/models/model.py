@@ -1,7 +1,8 @@
-"""The model facade of the port: the dense family, for serving.
+"""The model facade of the port: the dense and MoE families, for serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
-``family == "dense"``: ``init`` draws seeded weights like the reference's
+``family`` ``"dense"`` and ``"moe"`` (SwiGLU; the MoE MLP in every layer in
+place of the dense one): ``init`` draws seeded weights like the reference's
 ``Model.init`` (same tree, shapes, scales and dtypes; other random numbers),
 ``forward`` is the full-sequence path, and ``init_cache`` /
 ``decode_step`` / ``decode_and_sample`` / ``prefill_chunk`` are the serving
@@ -37,10 +38,11 @@ def _layer(tree: dict, i: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family != "dense" or cfg.mlp_kind != "swiglu":
+        if cfg.family not in ("dense", "moe") or cfg.mlp_kind != "swiglu":
             raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.mlp_kind} MLP) is not ported: "
-                f"ROADMAP.md, Queue 1, \"The other families\"")
+                f"family {cfg.family!r} ({cfg.mlp_kind} MLP) is not ported; the port "
+                f"runs dense and moe with SwiGLU, and hybrid, ssm, encdec and vlm are "
+                f"queued in ROADMAP.md, Queue 1, \"The other families\"")
         if cfg.cache_quant != "none" or cfg.attn_chunk:
             raise NotImplementedError(
                 "int8 KV and chunked attention are not ported: ROADMAP.md, "
@@ -51,7 +53,8 @@ class Model:
     # ================================================================ params
 
     def init(self, seed: int) -> dict:
-        """Seeded weights on ``self.device``, in the reference's tree."""
+        """Seeded weights on ``self.device``, in the reference's tree: the
+        MoE family has ``layers.moe`` in place of ``layers.mlp``."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n, d = cfg.n_layers, cfg.d_model
@@ -66,9 +69,12 @@ class Model:
                 "attn_norm": {"w": ones(n, d)},
                 "attn": L.attention_init(gen, cfg, stack=n),
                 "mlp_norm": {"w": ones(n, d)},
-                "mlp": L.mlp_init(gen, cfg, stack=n),
             },
         }
+        if cfg.family == "moe":
+            params["layers"]["moe"] = L.moe_init(gen, cfg, stack=n)
+        else:
+            params["layers"]["mlp"] = L.mlp_init(gen, cfg, stack=n)
         if not cfg.tie_embeddings:
             params["head"] = L._dense_init(gen, (d, cfg.vocab_size))
         return params
@@ -81,19 +87,31 @@ class Model:
     # ================================================================= train
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits, moe_aux_loss); the dense family has no aux loss."""
+        """Returns (logits, moe_aux_loss): the sum of the layers' aux losses,
+        zero for the dense family."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"]]  # (B, S, d)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions)
-            x = x + L.mlp_apply(lp["mlp"], _norm(lp["mlp_norm"], x, cfg.norm_eps))
+            y, a = self._mlp(lp, x)
+            x = x + y
+            if a is not None:
+                aux = aux + a
         x = _norm(params["final_norm"], x, cfg.norm_eps)
         logits = x @ self._head(params)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
+
+    def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The layer's MLP on ``x`` after its norm: (output, MoE aux loss or None)."""
+        y = _norm(lp["mlp_norm"], x, self.cfg.norm_eps)
+        if "moe" in lp:
+            return L.moe_apply(lp["moe"], self.cfg, y)
+        return L.mlp_apply(lp["mlp"], y), None
 
     # ================================================================= serve
 
@@ -118,12 +136,18 @@ class Model:
         place.
 
         ``update_mask`` (optional, (B,) bool) freezes the cache rows of
-        unselected batch entries: masked-out slots still compute (their
-        logits are garbage to be discarded) but their cache state comes out
-        bit-identical to what went in. The reference merges old and new
-        cache after the step (its ``_masked_cache``); the port writes only
-        the selected rows (``layers.masked_cache_write``), so rows past
-        ``max_len`` may be asked for only under a mask that leaves them out."""
+        unselected batch entries: masked-out slots still compute, and their
+        cache state comes out bit-identical to what went in. They compute
+        the reference's numbers: the reference writes every row's K/V,
+        attends with it and then restores the masked rows (its
+        ``_masked_cache``); the port writes only the selected rows
+        (``layers.masked_cache_write``) and lets every row attend with its
+        own K/V at its position (``layers.attention_apply``). A masked row's
+        logits are no caller's output, but under MoE its hidden state
+        competes with the live rows for expert capacity, so the live rows'
+        logits depend on it. A row whose position lies past ``max_len``
+        attends to the cache as it is (XLA drops that write), and may be
+        asked for only under a mask that leaves it out."""
         x = params["embed"][tokens]  # (B, 1, d)
         b = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
@@ -197,5 +221,5 @@ class Model:
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions,
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)
-            x = x + L.mlp_apply(lp["mlp"], _norm(lp["mlp_norm"], x, cfg.norm_eps))
+            x = x + self._mlp(lp, x)[0]
         return x

@@ -1,6 +1,7 @@
-"""Shared set-up of the PyTorch port's tests: the reduced qwen2-0.5b in both
-packages, on the same parameters (the JAX ``Model.init`` tree, carried
-across bit-exactly through numpy), with the port on the CPU."""
+"""Shared set-up of the PyTorch port's tests: a reduced configuration (by
+default qwen2-0.5b) in both packages, on the same parameters (the JAX
+``Model.init`` tree, carried across bit-exactly through numpy), with the
+port on the CPU."""
 
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.models.model import Model as TorchModel
 
 
-def reduced_pair(seed: int = 0):
-    """(cfg, jax_model, jax_params, torch_model, torch_params), the
-    parameters drawn by the JAX ``Model.init`` from ``seed``."""
-    cfg = dataclasses.replace(get("qwen2-0.5b").reduced(), remat="none")
-    tcfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), remat="none")
+def reduced_pair(seed: int = 0, arch: str = "qwen2-0.5b"):
+    """(cfg, jax_model, jax_params, torch_model, torch_params) of ``arch``
+    reduced, the parameters drawn by the JAX ``Model.init`` from ``seed``."""
+    cfg = dataclasses.replace(get(arch).reduced(), remat="none")
+    tcfg = dataclasses.replace(torch_get(arch).reduced(), remat="none")
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     jmodel = Model(cfg)
     jparams = jmodel.init(jax.random.key(seed))

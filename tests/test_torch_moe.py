@@ -1,0 +1,538 @@
+"""The port's MoE family against the JAX package's, on the same parameters.
+
+The reduced phi3.5-moe-42b-a6.6b (2 layers, d_model 64, 4 experts, top-2)
+runs in both packages on the CPU. Each MoE function gets the same inputs on
+both sides: routes, dispatch indices and buffers are held exactly, float
+outputs at ``test_layers_match_jax``'s tolerance. Whole runs (``forward``,
+decode, the engine, the serve loop) are held at ``test_decode_parity``'s
+tolerances and their ids exactly.
+
+Routing between frameworks: the router takes float32 probabilities of bf16
+activations, which the two frameworks round at other places, so a row whose
+k-th and (k+1)-th probabilities lie closer than the two sides' probabilities
+differ may route differently (at parameter seed 3 the engine run below
+meets one, 0.19185 against 0.19199). Every whole-run test records each router call of
+both packages and asserts, row by row, that JAX's margin exceeds twice the
+largest gap between the two sides' probabilities in that row: the run it
+compares is clear of such a tie, so its routes must be equal, and are. Runs
+that sample assert the sampled rows' top-two logit margin above
+``test_torch_serve``'s 0.06 as well. Few runs of this size clear both, so
+each group of tests draws its parameters from its own seed whose runs
+clear them: 17 for the layer tests, ``forward``, decode and the masked
+step, and 5 for the engine (the first found); 45 for the serve loop, of
+the three seeds in 0-127 whose runs clear both margins in every mode (39,
+45 and 102) the one with the most room (0.00044 above twice the gap).
+
+JAX is imported inside the CPU tests, so the ``gpu`` test also collects on a
+machine without it."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get as torch_get
+from repro_torch.kernels import ref
+from repro_torch.kernels.sampling import top_k
+from repro_torch.launch.serve import MODES, serve
+from repro_torch.models import layers as TL
+
+ARCH = "phi3.5-moe-42b-a6.6b"
+SEED, ENGINE_SEED, SERVE_SEED = 17, 5, 45  # parameter seeds: see the module docstring
+RTOL, ATOL, TOP1 = 0.05, 0.15, 0.9  # tests/test_decode_parity.py
+LAYER_TOL = dict(rtol=2 ** -7, atol=2 ** -7)  # test_layers_match_jax's
+MARGIN = 0.06  # sampled rows' top-two logits: twice the 0.03 cross-framework gap
+PROMPTS = [[5, 9, 2], [7, 1], [3, 3, 3, 3]]
+MAX_NEW, PREFILL_CHUNK = 4, 2
+SERVE = dict(batch=2, steps=11, cache_len=16, fuse=4)  # fused: launches of 4 and a tail of 3
+
+
+@pytest.fixture(scope="module")
+def pair():
+    from _torch_port import reduced_pair
+
+    return reduced_pair(SEED, ARCH)
+
+
+@pytest.fixture(scope="module")
+def engine_pair():
+    from _torch_port import reduced_pair
+
+    return reduced_pair(ENGINE_SEED, ARCH)
+
+
+@pytest.fixture(scope="module")
+def serve_pair():
+    from _torch_port import reduced_pair
+
+    return reduced_pair(SERVE_SEED, ARCH)
+
+
+@pytest.fixture(scope="module")
+def dense_pair():
+    from _torch_port import reduced_pair
+
+    return reduced_pair()
+
+
+class Routes:
+    """Every router call of both packages, in call order: the JAX package's
+    through an ordered debug callback (so ``jit`` and ``scan`` keep the
+    order), the port's directly. Each entry is (probabilities, expert ids)
+    of one call."""
+
+    def __init__(self, monkeypatch):
+        import jax
+        import jax.numpy as jnp
+        from repro.models import layers as JL
+
+        self.jax, self.port = [], []
+        jax_route, port_route = JL._moe_route, TL._moe_route
+        jax.clear_caches()  # a function traced before would skip the recorder
+
+        def record_jax(params, cfg, xt):
+            out = jax_route(params, cfg, xt)
+            probs = jax.nn.softmax(xt.astype(jnp.float32) @ params["router"], axis=-1)
+            jax.debug.callback(lambda p, e: self.jax.append((np.asarray(p), np.asarray(e))),
+                               probs, out[1], ordered=True)
+            return out
+
+        def record_port(params, cfg, xt):
+            out = port_route(params, cfg, xt)
+            probs = torch.softmax((xt.double() @ params["router"].double()).float(), dim=-1)
+            self.port.append((probs.numpy(), out[1].numpy()))
+            return out
+
+        monkeypatch.setattr(JL, "_moe_route", record_jax)
+        monkeypatch.setattr(TL, "_moe_route", record_port)
+
+    def assert_clear_and_equal(self, k: int, ordered: bool = False) -> float:
+        """Each row's JAX margin between its k-th and (k+1)-th probability
+        (and, ``ordered``, between each two of its top k) exceeds twice the
+        row's largest gap between the two sides' probabilities, and the
+        routes are equal (as sets; in order where ``ordered``). Returns the
+        largest gap."""
+        assert self.jax and len(self.jax) == len(self.port)
+        worst, largest = np.inf, 0.0
+        for (pj, ej), (pt, et) in zip(self.jax, self.port):
+            gap = np.abs(pj - pt).max(-1)
+            top = -np.sort(-pj, axis=-1)
+            cuts = range(k) if ordered else (k - 1,)
+            for j in cuts:
+                worst = min(worst, float((top[:, j] - top[:, j + 1] - 2 * gap).min()))
+            largest = max(largest, float(gap.max()))
+            if ordered:
+                np.testing.assert_array_equal(et, ej)
+            else:
+                np.testing.assert_array_equal(np.sort(et, -1), np.sort(ej, -1))
+        assert worst > 0, f"a route lies within twice the frameworks' gap ({worst})"
+        return largest
+
+
+def _assert_logits_close(want, got):
+    from _torch_port import to_numpy32
+
+    a, b = to_numpy32(want), to_numpy32(got)
+    np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL)
+    assert (a.argmax(-1) == b.argmax(-1)).mean() >= TOP1
+
+
+def _layer_params(pair, i: int = 0):
+    """Layer ``i``'s MoE parameters on both sides."""
+    import jax
+
+    _, _, jparams, _, tparams = pair
+    jp = jax.tree.map(lambda a: a[i], jparams["layers"]["moe"])
+    return jp, {k: v[i] for k, v in tparams["layers"]["moe"].items()}
+
+
+# ------------------------------------------------------------ configuration
+
+
+def test_config_and_registry_match_reference():
+    from repro.configs import get
+
+    assert dataclasses.asdict(torch_get(ARCH)) == dataclasses.asdict(get(ARCH))
+    assert torch_get(ARCH).n_layers == 32
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        torch_get("jamba-1.5-large-398b")
+
+
+def test_init_draws_the_reference_tree(pair):
+    """``layers.moe`` in place of ``layers.mlp``: the reference's tree,
+    shapes and dtypes (an f32 router, bf16 experts), the experts scaled by
+    their fan-in d_model and ff."""
+    import jax
+
+    from repro_torch.dispatch.executor import flatten_with_path
+
+    cfg, jmodel, _, tmodel, _ = pair
+    want = jax.tree_util.tree_flatten_with_path(jmodel.abstract_params())[0]
+    params = tmodel.init(3)
+    got = flatten_with_path(params)
+    assert [jax.tree_util.keystr(k) for k, _ in want] == [k for k, _ in got]
+    for (_, w), (_, g) in zip(want, got):
+        assert tuple(g.shape) == w.shape
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
+    moe = params["layers"]["moe"]
+    assert "mlp" not in params["layers"] and moe["router"].dtype == torch.float32
+    for name, fan_in in (("wi", cfg.d_model), ("wg", cfg.d_model), ("wo", cfg.d_ff)):
+        assert abs(moe[name].float().std().item() * fan_in ** 0.5 - 1.0) < 0.1
+    assert not torch.equal(moe["wi"][0], moe["wi"][1])  # a fresh draw a layer
+    torch.testing.assert_close(moe["wo"], tmodel.init(3)["layers"]["moe"]["wo"], rtol=0, atol=0)
+
+
+# ----------------------------------------------------------- MoE functions
+
+
+def _xt(cfg, t: int, seed: int = 2):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    return jnp.asarray(rng.standard_normal((t, cfg.d_model)), jnp.bfloat16)
+
+
+@pytest.mark.parametrize("t", [4, 16])
+def test_route_matches_jax(pair, t):
+    from _torch_port import to_torch
+    from repro.models import layers as JL
+
+    cfg = pair[0]
+    jp, tp = _layer_params(pair)
+    x = _xt(cfg, t)
+    want = JL._moe_route(jp, cfg, x)
+    got = TL._moe_route(tp, cfg, to_torch(x))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].dtype == torch.int32 and got[0].dtype == torch.float32
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+
+
+def test_route_breaks_exact_ties_as_lax_top_k(pair):
+    """Experts 1 and 3 share a router column, and experts 0 and 2 another:
+    every row's probabilities tie exactly in pairs, and the lower expert
+    index comes first, as in ``lax.top_k``."""
+    import jax.numpy as jnp
+
+    from _torch_port import to_torch
+    from repro.models import layers as JL
+
+    cfg = pair[0]
+    jp, _ = _layer_params(pair)
+    router = np.asarray(jp["router"]).copy()
+    router[:, 3], router[:, 2] = router[:, 1], router[:, 0]
+    jp = {**jp, "router": jnp.asarray(router)}
+    tp = {k: to_torch(v) for k, v in jp.items()}
+    x = _xt(cfg, 8, seed=4)
+    want = JL._moe_route(jp, cfg, x)
+    got = TL._moe_route(tp, cfg, to_torch(x))
+    ids = got[1].numpy()
+    np.testing.assert_array_equal(ids, np.asarray(want[1]))
+    assert set(map(tuple, ids)) <= {(0, 2), (1, 3)}
+    np.testing.assert_array_equal(got[0].numpy(), np.full((8, 2), 0.5, np.float32))
+
+
+def _routes_with_drops(t: int, k: int, e: int):
+    """Routes where every token picks expert 0 first: at capacity 1 all but
+    token 0's entry for it drop, and equal expert ids meet in the sort."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(7)
+    top_e = np.stack([np.zeros(t, np.int32), rng.integers(1, e, t).astype(np.int32)], 1)[:, :k]
+    top_p = rng.dirichlet(np.ones(k), t).astype(np.float32)
+    return jnp.asarray(top_p), jnp.asarray(top_e)
+
+
+@pytest.mark.parametrize("capacity", [1, 2, 5, 16])
+def test_dispatch_is_exact(pair, capacity):
+    from _torch_port import to_torch
+    from repro.models import layers as JL
+
+    cfg = pair[0]
+    t = 8
+    x = _xt(cfg, t, seed=3)
+    top_p, top_e = _routes_with_drops(t, cfg.experts_per_token, cfg.n_experts)
+    want = JL._moe_dispatch(cfg, x, top_p, top_e, capacity)
+    got = TL._moe_dispatch(cfg, to_torch(x), to_torch(top_p), to_torch(top_e), capacity)
+    for w, g in zip(want[1:], got[1:]):  # se, sp, st, slot, keep
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].dtype == torch.bfloat16 and tuple(got[0].shape) == want[0].shape
+    np.testing.assert_array_equal(got[0].view(torch.int16).numpy(),
+                                  np.asarray(want[0]).view(np.int16))
+    keep = got[5].numpy()
+    if capacity == 1:
+        assert keep.sum() < len(keep)  # entries drop
+    if capacity == 16:
+        assert keep.all()
+
+
+def test_ffn_and_combine_match_jax(pair):
+    from _torch_port import to_numpy32, to_torch
+    from repro.models import layers as JL
+
+    cfg = pair[0]
+    jp, tp = _layer_params(pair)
+    t = 8
+    x = _xt(cfg, t, seed=5)
+    top_p, top_e = _routes_with_drops(t, cfg.experts_per_token, cfg.n_experts)
+    buf, *rest = JL._moe_dispatch(cfg, x, top_p, top_e, 2)
+    want_y = JL._moe_ffn(jp, buf)
+    got_y = TL._moe_ffn(tp, to_torch(buf))
+    assert got_y.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_numpy32(got_y), to_numpy32(want_y), **LAYER_TOL)
+    # combine on the same expert outputs: bit for bit
+    want = JL._moe_combine(cfg, want_y, *rest, t, cfg.d_model)
+    got = TL._moe_combine(cfg, to_torch(want_y), *(to_torch(a) for a in rest), t, cfg.d_model)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+
+
+@pytest.mark.parametrize("capacity_factor,moe_impl",
+                         [(1.25, "gspmd"), (4.0, "gspmd"), (1.25, "shard_map")])
+def test_moe_apply_matches_jax(pair, capacity_factor, moe_impl):
+    """Both formulations; with no mesh the reference's ``shard_map`` falls
+    back to the gspmd path (``tests/test_perf_features.py``), and so does
+    the port's."""
+    from _torch_port import to_numpy32, to_torch
+    from repro.models import layers as JL
+
+    cfg = dataclasses.replace(pair[0], capacity_factor=capacity_factor, moe_impl=moe_impl)
+    jp, tp = _layer_params(pair, 1)
+    x = _xt(cfg, 12, seed=6).reshape(2, 6, cfg.d_model)
+    want, want_aux = JL.moe_apply(jp, cfg, x)
+    got, aux = TL.moe_apply(tp, cfg, to_torch(x))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(to_numpy32(got), to_numpy32(want), **LAYER_TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+# -------------------------------------------------------------- whole runs
+
+
+def _tokens(cfg, shape, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def test_forward_matches_jax(pair, monkeypatch):
+    """Logits, and the aux loss (the sum of the layers' Switch losses): its
+    routes are equal in order, so it differs only by the routers' mean
+    probabilities, at most E times their largest gap a layer."""
+    import jax
+    import jax.numpy as jnp
+
+    cfg, jmodel, jparams, tmodel, tparams = pair
+    routes = Routes(monkeypatch)
+    toks = _tokens(cfg, (2, 8))
+    want, want_aux = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(toks)})
+    got, aux = tmodel.forward(tparams, {"tokens": torch.from_numpy(toks)})
+    gap = routes.assert_clear_and_equal(cfg.experts_per_token, ordered=True)
+    assert got.dtype == torch.bfloat16 and aux.dtype == torch.float32
+    _assert_logits_close(want, got)
+    assert float(aux) > 0
+    assert abs(float(aux) - float(want_aux)) <= cfg.n_layers * cfg.n_experts * gap
+
+
+def test_teacher_forced_decode_matches_jax_and_forward(pair, monkeypatch):
+    """At drop-free capacity (``test_decode_parity``'s), step-by-step decode
+    gives the full forward's logits: the port's steps against JAX's forward
+    and the port's own, with the routes of JAX's and the port's steps
+    equal."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.model import Model
+    from repro_torch.models.model import Model as TorchModel
+
+    cfg, _, jparams, _, tparams = pair
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    jmodel, tmodel = Model(cfg), TorchModel(cfg, device="cpu")
+    b, s = 2, 8
+    toks = _tokens(cfg, (b, s))
+    full_jax, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(toks)})
+    full, _ = tmodel.forward(tparams, {"tokens": torch.from_numpy(toks)})
+    routes = Routes(monkeypatch)
+    jcache, tcache = jmodel.init_cache(b, s), tmodel.init_cache(b, s)
+    step = jax.jit(jmodel.decode_step)
+    got = []
+    for i in range(s):
+        _, jcache = step(jparams, jcache, jnp.asarray(toks[:, i:i + 1]), jnp.int32(i))
+        lt, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(toks[:, i:i + 1]), i)
+        got.append(lt[:, 0].float().numpy())
+    routes.assert_clear_and_equal(cfg.experts_per_token)
+    _assert_logits_close(full_jax, np.stack(got, 1))
+    _assert_logits_close(full, np.stack(got, 1))
+
+
+def _masked_step(pair, tokens, pos, mask, junk):
+    """One masked decode step of both packages from the same cache; returns
+    (JAX logits, port logits, port cache before, port cache after)."""
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_port import to_numpy32, to_torch
+
+    _, jmodel, jparams, tmodel, tparams = pair
+    jcache = {k: jnp.asarray(v) for k, v in junk.items()}
+    tcache = {k: to_torch(v) for k, v in junk.items()}
+    before = {k: v.clone() for k, v in tcache.items()}
+    want, _ = jax.jit(jmodel.decode_step)(jparams, jcache, jnp.asarray(tokens),
+                                          jnp.asarray(pos), jnp.asarray(mask))
+    got, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(tokens),
+                                     torch.from_numpy(pos), torch.from_numpy(mask))
+    return to_numpy32(want[:, 0]), to_numpy32(got[:, 0]), before, tcache
+
+
+def _junk_cache(cfg, b: int, max_len: int, seed: int = 5) -> dict:
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal((cfg.n_layers, b, max_len, cfg.n_kv_heads,
+                                    cfg.head_dim_)).astype(jnp.bfloat16) for k in ("k", "v")}
+
+
+def test_masked_row_takes_a_live_rows_expert_slot(pair, monkeypatch):
+    """Slot 0 is masked out and the other three are live, at per-slot
+    positions over a cache of random rows; four rows at capacity 2 (of 4
+    experts, top-2) fill one buffer, where slot 0's entries, the lowest
+    flat indices, win every expert they pick. Only slot 0's token changes
+    between runs, and the live rows' logits move with it: the masked row
+    takes slots the live rows would have had. In every run all four rows'
+    logits equal JAX's, which writes the masked row's K/V, attends with it
+    and then restores it; and the masked row's cache stays bit-identical.
+    Slot 3, also masked, sits past the cache, where nothing is written."""
+    cfg = pair[0]
+    b, max_len = 5, 16
+    junk = _junk_cache(cfg, b, max_len)
+    pos = np.array([3, 5, 2, max_len + 2, 9], np.int32)
+    mask = np.array([False, True, True, False, True])
+    routes = Routes(monkeypatch)
+    live = []
+    for tok0 in (0, 1, 7):
+        tokens = np.array([[tok0], [11], [22], [33], [44]], np.int32)
+        want, got, before, after = _masked_step(pair, tokens, pos, mask, junk)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        for k in ("k", "v"):
+            for slot in (0, 3):
+                torch.testing.assert_close(after[k][:, slot], before[k][:, slot], rtol=0, atol=0)
+        live.append(got[mask])
+    routes.assert_clear_and_equal(cfg.experts_per_token)
+    for other in live[1:]:  # further apart than the tolerance above allows
+        assert not np.allclose(other, live[0], rtol=RTOL, atol=ATOL)
+
+
+def test_dense_masked_rows_compute_the_references_logits(dense_pair):
+    """The same all-rows check for the dense family, where rows never meet:
+    a masked row attends with its own K/V as the reference's does, so its
+    logits equal JAX's too, and its cache stays bit-identical."""
+    cfg = dense_pair[0]
+    b, max_len = 4, 16
+    junk = _junk_cache(cfg, b, max_len, seed=6)
+    tokens = np.array([[4], [9], [17], [30]], np.int32)
+    pos = np.array([5, 2, 9, max_len + 1], np.int32)
+    mask = np.array([True, False, True, False])
+    want, got, before, after = _masked_step(dense_pair, tokens, pos, mask, junk)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    for k in ("k", "v"):
+        for slot in (1, 3):
+            torch.testing.assert_close(after[k][:, slot], before[k][:, slot], rtol=0, atol=0)
+        assert not torch.equal(after[k][:, 0, 5], before[k][:, 0, 5])
+
+
+def _engine_run(engine_cls, request_cls, model, params, **kw):
+    engine = engine_cls(model, params, max_slots=2, max_len=32, prefill_chunk=PREFILL_CHUNK,
+                        **kw)
+    for i, p in enumerate(PROMPTS):
+        engine.submit(request_cls(uid=i, prompt=list(p), max_new_tokens=MAX_NEW))
+    streams = {r.uid: r.generated for r in engine.run_until_done()}
+    return streams, engine.config_traffic()
+
+
+def _decode_margins(monkeypatch, model, sampling: str):
+    """A decode function for the port's engine that records the top-two
+    logit margin of every live row of every decode launch (the rows whose
+    ids the streams take), and the list it appends them to."""
+    from repro_torch.serving import ServingEngine
+
+    margins, last = [], {}
+    step = model.decode_step
+
+    def recorded_step(*args):
+        last["logits"], cache = step(*args)
+        return last["logits"], cache
+
+    monkeypatch.setattr(model, "decode_step", recorded_step)
+    decode = ServingEngine.compile_decode(model, sampling=sampling)
+
+    def decode_fn(*args):  # the live mask is the last argument in both forms
+        out = decode(*args)
+        top = torch.sort(last["logits"][:, -1].float(), dim=-1).values
+        margins.extend((top[:, -1] - top[:, -2])[args[-1]].tolist())
+        return out
+
+    return decode_fn, margins
+
+
+@pytest.mark.parametrize("sampling", ["fused", "host"])
+def test_engine_streams_equal_jax_engine(engine_pair, monkeypatch, sampling):
+    """Two slots at capacity 1: the rows compete for each expert's one
+    slot, the dead and the prefilling slots' rows included."""
+    from repro.serving import Request as JaxRequest
+    from repro.serving import ServingEngine as JaxEngine
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg, jmodel, jparams, tmodel, tparams = engine_pair
+    routes = Routes(monkeypatch)
+    decode_fn, margins = _decode_margins(monkeypatch, tmodel, sampling)
+    want = _engine_run(JaxEngine, JaxRequest, jmodel, jparams, sampling=sampling)
+    got = _engine_run(ServingEngine, Request, tmodel, tparams, sampling=sampling,
+                      decode_fn=decode_fn)
+    routes.assert_clear_and_equal(cfg.experts_per_token)
+    assert len(margins) == MAX_NEW * len(PROMPTS) and min(margins) > MARGIN, min(margins)
+    assert sorted(len(g) for g in got[0].values()) == [MAX_NEW] * len(PROMPTS)
+    assert got == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_serve_ids_equal_jax(serve_pair, monkeypatch, mode):
+    """``launch.serve``'s loop in each mode against the reference's loop:
+    two rows from the same first token at capacity 1, so the second row's
+    entries drop until the rows part."""
+    from test_torch_serve import _jax_serve
+
+    cfg, jmodel, jparams, tmodel, tparams = serve_pair
+    routes = Routes(monkeypatch)
+    want, margins = _jax_serve(jmodel, jparams, mode, **SERVE)
+    run = serve(tmodel, tparams, mode=mode, **SERVE)
+    routes.assert_clear_and_equal(cfg.experts_per_token)
+    assert margins.min() > MARGIN, margins.min()
+    assert tuple(run.ids.shape) == (SERVE["steps"] - (SERVE["fuse"] if mode == "fused" else 1),
+                                    SERVE["batch"])
+    np.testing.assert_array_equal(run.ids.numpy(), want)
+
+
+# ------------------------------------------------------------------- card
+
+
+@pytest.mark.gpu
+def test_cuda_top_k_at_the_routers_shapes():
+    """The hand-written top_k against its plain version on the card at the
+    router's shapes (decode B = 4 and 16 rows of 16 experts, k = 2, f32),
+    ids and values exactly, one launch a call; on exact ties the lowest
+    expert index wins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ties = torch.softmax(torch.tensor([[1.0, 3.0, 2.0, 3.0] * 4] * 4, device="cuda"), -1)
+    cases = [torch.softmax(torch.randn((t, 16), generator=gen, device="cuda"), -1)
+             for t in (4, 16)] + [ties.contiguous()]
+    for x in cases:
+        before = top_k.launches
+        vals, ids = top_k(x, 2)
+        torch.cuda.synchronize()
+        assert top_k.launches == before + 1
+        want_v, want_i = ref.top_k_ref(x, 2)
+        torch.testing.assert_close(ids, want_i, rtol=0, atol=0)
+        torch.testing.assert_close(vals, want_v, rtol=0, atol=0)
+    assert ids.tolist() == [[1, 3]] * 4
