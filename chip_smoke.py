@@ -99,6 +99,27 @@ Phases, each printing its results; any failure exits non-zero:
    the fused mode profiled. The model is freed at the end. The record's
    top_k ``launches`` are this path's (``launches_ops``: the ops path's),
    and its ``router_*`` keys the router shape's times and bound.
+12. SSM: rwkv6-7b whole (32 of 32 layers at its published widths, 15.04 GB
+   of bf16 weights seeded on the card), after the MoE model is freed, with
+   the parameter count read from the tree. greedy_sample exactly against
+   its plain version at the head's shapes, (4, 65536) and (1, 65536) bf16,
+   and on ties and NaNs straddling the chunk boundaries of the plan it
+   takes there, each call printing its cluster size, then timed at both
+   beside torch.argmax and its bound; ``forward`` against teacher-forced
+   ``decode_step`` (B = 2, S = 8): bit for bit with the decode batch padded
+   to the forward's 16 product rows, and at 2 rows printed against
+   test_decode_parity's tolerances with top-1 held (``_ssm_parity``); one
+   masked fused decode step under ``set_sync_debug_mode("error")``, after
+   which the masked row's ``s``, ``shift_tm`` and ``shift_cm`` must be
+   bit-identical; the serving engine (4 requests of 16-32 seeded tokens, 16
+   new tokens, 4 slots, prefill chunk 8) fused then host-sampled, with
+   bit-identical streams and greedy_sample once per fused decode launch,
+   counted from 0 just before the fused run and read just after; the
+   serving loop's three modes as in 6 (batch 4, 64 steps, fuse 8), the
+   fused mode profiled and its step set beside the bound of reading the
+   weights once and the state twice; peak memory and the phase's seconds.
+   The record's ``launches_ssm`` are this path's greedy_sample launches,
+   its ``*_ssm`` keys the (4, 65536) times and bound.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -109,6 +130,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -136,6 +158,13 @@ BRIDGE_TENANTS, BRIDGE_HOSTS, BRIDGE_SLOTS, BRIDGE_MAX_LEN, BRIDGE_MAX_NEW = 6, 
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
 MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
 MOE_STEPS, MOE_CACHE = 32, 64  # launch.serve: batch and fuse as the command's defaults
+# the [ssm] phase: rwkv6-7b whole, at its published widths and depth
+SSM_ARCH, SSM_V = "rwkv6-7b", 65_536
+SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
+# forward vs decode at B = 2 rows: each bf16 path's largest distance from an f32
+# forward; the two lay 0.71-0.79 apart from it (a ratio up to 1.11, PERF.md §6)
+SSM_F32_RATIO = 1.25
+FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
     ("round_robin", "round_robin", False, "fused", 8),
@@ -916,11 +945,12 @@ def _profiled(fn, steps_run: int) -> dict:
 
 def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
                       cache_len: int = SERVE_CACHE, tag: str = "[serve-modes]",
-                      profiled: tuple = ("sequential", "fused", "fused fuse=1")) -> None:
+                      profiled: tuple = ("sequential", "fused", "fused fuse=1")) -> dict:
     """``python -m repro_torch.launch.serve``'s loop, through ``serve()``, in
     each mode at full width, with greedy_sample's count set to 0 just before
     each run and read just after; then the ``profiled`` modes' short runs
-    under torch.profiler."""
+    under torch.profiler. Returns each mode's device ms a step and, for the
+    profiled modes, the profile."""
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.launch.serve import serve
 
@@ -969,6 +999,7 @@ def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
     # short runs under torch.profiler: what a step costs the card, against
     # the timed runs' device ms a step (the rest is the card idle)
     short = {"batch": SERVE_BATCH, "cache_len": cache_len}
+    out = {label: {"device_ms": run.device_ms / run.produced} for label, run in runs.items()}
     for label, run, kw, steps_run in (
             ("sequential", runs["sequential"], dict(mode="sequential", steps=9), 9),
             ("fused", runs["fused"], dict(mode="fused", steps=3 * SERVE_FUSE, fuse=SERVE_FUSE),
@@ -982,6 +1013,8 @@ def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
               f"{prof['ops']:.1f} device ops a step, busy {prof['busy_ms']:.4f} ms a step; "
               f"against the timed run's {step_ms:.4f} device ms a step the card is idle "
               f"{1 - prof['busy_ms'] / step_ms:.3f} of it ({smi})")
+        out[label].update(prof, idle=1 - prof["busy_ms"] / step_ms)
+    return out
 
 
 def phase_calibrate(smi: str) -> dict:
@@ -1329,6 +1362,44 @@ def _moe_parity(model, params, b: int = 2, s: int = 8) -> None:
                          f"than twice the rounding gap {gap}")
 
 
+def _masked_fused_step(model, params, cache: dict) -> None:
+    """One eager ``decode_and_sample`` step of 4 slots at their own
+    positions, slot 3 masked out, under ``set_sync_debug_mode("error")``:
+    nothing in a fused step may read the card back, or capture breaks. A
+    first step on a copy of ``cache`` builds the kernel and warms the
+    path."""
+    b = SERVE_BATCH
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    overrides = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 3, 5, 0], dtype=torch.int32, device="cuda")
+    live = torch.tensor([True, True, True, False], device="cuda")
+    model.decode_and_sample(params, {k: v.clone() for k, v in cache.items()}, ones, overrides,
+                            live, pos, live)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_and_sample(params, cache, ones, overrides, live, pos, live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _free_model(tag: str, found: int) -> None:
+    """Collects the phase's garbage (engines and executors hold the weights
+    through reference cycles), empties the allocator's cache, and fails
+    unless the memory allocated is back within ``FREED_SLACK`` of
+    ``found``, what the phase found. The caller has dropped its names."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"{tag} memory_allocated after freeing the model={left} B (before building it: "
+          f"{found} B)")
+    if left > found + FREED_SLACK:
+        raise SystemExit(f"{tag} the phase left {left - found} B allocated after freeing "
+                         f"its model")
+
+
 def phase_moe(smi: str) -> dict:
     """The MoE family at its published widths: phi-3.5-MoE cut to 16 of its
     32 layers (the first of two pipeline stages of a two-card deployment;
@@ -1358,6 +1429,7 @@ def phase_moe(smi: str) -> dict:
     router = _moe_router_check(smi)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
     ti = time.perf_counter()
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
@@ -1366,22 +1438,7 @@ def phase_moe(smi: str) -> dict:
           f"memory_allocated={torch.cuda.memory_allocated()} B, max_memory_allocated="
           f"{torch.cuda.max_memory_allocated()} B")
 
-    # one eager fused step with every read-back refused
-    b = SERVE_BATCH
-    cache = model.init_cache(b, MOE_CACHE)
-    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
-    overrides = torch.zeros((b,), dtype=torch.int32, device="cuda")
-    pos = torch.tensor([0, 3, 5, 0], dtype=torch.int32, device="cuda")
-    live = torch.tensor([True, True, True, False], device="cuda")
-    model.decode_and_sample(params, cache, ones, overrides, live, pos, live)  # builds, warms
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        model.decode_and_sample(params, cache, ones, overrides, live, pos, live)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    del cache
+    _masked_fused_step(model, params, model.init_cache(SERVE_BATCH, MOE_CACHE))
     print("[moe] one masked fused decode step under set_sync_debug_mode('error'): no read-back")
 
     _moe_parity(Model(dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)),
@@ -1423,12 +1480,226 @@ def phase_moe(smi: str) -> dict:
     phase_serve_modes(model, params, smi, steps=MOE_STEPS, cache_len=MOE_CACHE, tag="[moe]",
                       profiled=("fused",))
     del model, params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    took = time.perf_counter() - t0
-    print(f"[moe] phase took {took:.1f} s; memory_allocated after freeing the model="
-          f"{torch.cuda.memory_allocated()} B")
+    _free_model("[moe]", found)
+    print(f"[moe] phase took {time.perf_counter() - t0:.1f} s")
     return {"top_k": counted["top_k"], "greedy_sample": counted["greedy_sample"], **router}
+
+
+def _ssm_greedy_check(smi: str) -> dict:
+    """greedy_sample exactly against its plain version at the RWKV head's
+    shapes, (4, 65536) and (1, 65536) bf16, random and with ties and NaNs
+    straddling every chunk boundary of the plan it takes there, each call
+    printing its plan and cluster size; then timed at both beside
+    torch.argmax and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sampling import greedy_sample, plan_greedy_sample
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst, out = 0, {}
+    for b in (4, 1):
+        x = torch.randn((b, SSM_V), generator=gen, device="cuda").to(torch.bfloat16)
+        for label, case in (("random", x),
+                            ("across cluster chunks", _across_cluster_chunks(b, SSM_V).to(
+                                torch.bfloat16))):
+            got, cluster = _cluster_of(lambda: greedy_sample(case))
+            want = ref.greedy_sample_ref(case)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            print(f"[ssm] greedy_sample {label} B={b} V={SSM_V} bf16: plan "
+                  f"{plan_greedy_sample(b, SSM_V)}, cluster={cluster} max_abs_err={err}")
+            if err:
+                raise SystemExit(f"greedy_sample disagrees with its plain version on {label} "
+                                 f"B={b} V={SSM_V}: {got.tolist()} vs {want.tolist()}")
+        bound = _bound_ms(x.numel() * x.element_size() + b * 4, 0.0, 1.0)
+        ms = _timed(f"greedy_sample B={b} V={SSM_V} bf16, cluster of {cluster}", {
+            "ms": lambda: greedy_sample(x), "plain_ms": lambda: ref.greedy_sample_ref(x),
+            "library_ms": lambda: torch.argmax(x, dim=-1)}, *bound, smi)
+        out[b] = {"ms": ms, "bound": bound, "cluster": cluster}
+    four = out[4]
+    return {"max_abs_err": worst, "cluster_ssm": four["cluster"], "ms_ssm": four["ms"]["ms"],
+            "plain_ms_ssm": four["ms"]["plain_ms"], "library_ms_ssm": four["ms"]["library_ms"],
+            "bound_ms_ssm": four["bound"][0], "ms_ssm_b1": out[1]["ms"]["ms"],
+            "library_ms_ssm_b1": out[1]["ms"]["library_ms"]}
+
+
+def _f32_tree(tree: dict) -> dict:
+    return {k: _f32_tree(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+
+def _ssm_parity(model, params, b: int = 2, s: int = 8) -> None:
+    """``forward`` against teacher-forced ``decode_step``. The forward runs
+    its products over B·S rows, a decode step over B; cuBLAS takes other
+    kernels for the two, whose bf16 roundings part, and the recurrent
+    state carries each step's difference on (it grows by ≈ 0.08 a
+    position at full width). So the check is three-fold: decode with its
+    batch padded to B·S rows (the forward's product shapes) must give the
+    forward's logits bit for bit; at B rows top-1 must agree with the
+    forward's on at least 0.9 of the tokens (the tolerance fractions are
+    printed position by position); and, against the same forward run in
+    f32 (the weights cast up, TF32 off), the B-row decode's largest
+    distance must stay within ``SSM_F32_RATIO`` times the bf16 forward's:
+    neither path may be a worse approximation of the model than the other
+    by more than their rounding spread."""
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen, device=model.device)
+    full = model.forward(params, {"tokens": tokens})[0]
+
+    def decode(rows: int) -> torch.Tensor:
+        padded = torch.cat([tokens, tokens[:1].expand(rows - b, s)])
+        cache, steps = model.init_cache(rows, s), []
+        for i in range(s):
+            lg, cache = model.decode_step(params, cache, padded[:, i:i + 1], i)
+            steps.append(lg[:b, 0])
+        return torch.stack(steps, 1)
+
+    if not torch.equal(decode(b * s), full):
+        raise SystemExit(f"ssm decode over {b * s} rows differs from forward's logits")
+    a, d = full.float().cpu().numpy(), decode(b).float().cpu().numpy()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("the f32 forward needs TF32 off")
+    torch.cuda.reset_peak_memory_stats()
+    wide = _f32_tree(params)
+    exact = model.forward(wide, {"tokens": tokens})[0].cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    del wide
+    torch.cuda.empty_cache()
+    diff = np.abs(a - d)
+    to_f32_fwd, to_f32_dec = np.abs(a - exact), np.abs(d - exact)
+    within = np.isclose(d, a, rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    top1 = float((a.argmax(-1) == d.argmax(-1)).mean())
+    ratio = float(to_f32_dec.max() / to_f32_fwd.max())
+    by_pos = lambda x: [round(float(v), 4) for v in x.max(axis=(0, 2))]  # noqa: E731
+    rms = lambda x: float(np.sqrt((x ** 2).mean()))  # noqa: E731
+    finite = bool(np.isfinite(a).all() and np.isfinite(d).all() and np.isfinite(exact).all())
+    print(f"[ssm] forward vs decode_step B={b} S={s}: decode over {b * s} rows (the forward's "
+          f"product shapes) equals the forward bit for bit; over {b} rows max_abs_diff by "
+          f"position {by_pos(diff)}, within rtol {PARITY_RTOL} atol {PARITY_ATOL} by position "
+          f"{[round(float(x), 4) for x in within.mean(axis=(0, 2))]}, top1 agreement={top1:.4f} "
+          f"(>= {PARITY_TOP1}); finite={finite}")
+    print(f"[ssm] against an f32 forward (max_memory_allocated={peak} B): the bf16 forward's "
+          f"max_abs_diff by position {by_pos(to_f32_fwd)}, rms {rms(to_f32_fwd):.4f}; the "
+          f"{b}-row decode's {by_pos(to_f32_dec)}, rms {rms(to_f32_dec):.4f}; largest "
+          f"{to_f32_dec.max():.4f} = "
+          f"{ratio:.4f}x the forward's {to_f32_fwd.max():.4f} (<= {SSM_F32_RATIO}); top1 "
+          f"agreement with f32: forward {float((a.argmax(-1) == exact.argmax(-1)).mean()):.4f}, "
+          f"decode {float((d.argmax(-1) == exact.argmax(-1)).mean()):.4f}")
+    if not finite or top1 < PARITY_TOP1 or ratio > SSM_F32_RATIO:
+        raise SystemExit(f"ssm forward and decode: top-1 agreement {top1} < {PARITY_TOP1}, or "
+                         f"the decode {ratio}x as far from the f32 forward as the forward "
+                         f"(> {SSM_F32_RATIO}), or non-finite logits")
+
+
+def phase_ssm(smi: str) -> dict:
+    """The ssm family: rwkv6-7b whole (32 of 32 layers at its published
+    widths), seeded weights. greedy_sample at the head's shapes; forward
+    against teacher-forced decode and an f32 forward; one masked eager
+    fused step under ``set_sync_debug_mode("error")``, the masked row's
+    state bit-identical after it; the serving engine fused and
+    host-sampled on the same requests, with greedy_sample counted from 0
+    just before the fused run and read just after, then fused over twice
+    as many requests as slots; ``launch.serve``'s loop in its three modes
+    beside the step's bound. Frees the model at the end, and checks that
+    it is gone."""
+    from repro_torch.configs import get
+    from repro_torch.dispatch.executor import flatten_with_path
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = get(SSM_ARCH)
+    greedy = _ssm_greedy_check(smi)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
+    ti = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    leaves = flatten_with_path(params)
+    n = sum(p.numel() for _, p in leaves)
+    nbytes = {}  # by top-level name: embed, final_norm, head, layers
+    for path, p in leaves:
+        top = path.split("'")[1]
+        nbytes[top] = nbytes.get(top, 0) + p.numel() * p.element_size()
+    print(f"[ssm] {SSM_ARCH} whole: {cfg.n_layers} of {cfg.n_layers} layers; widths as "
+          f"published: d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n} parameters in the "
+          f"tree, {sum(nbytes.values()) / 1e9:.2f} GB (trunk {nbytes['layers'] / 1e9:.2f}, head "
+          f"{nbytes['head'] / 1e9:.2f}); ModelConfig.param_count() estimates "
+          f"{cfg.param_count()}; seeded on the card in {time.perf_counter() - ti:.2f} s, "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    if (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != (32, 4096, 14336, 65536):
+        raise SystemExit(f"{SSM_ARCH} is not at its published widths and depth")
+
+    # one masked fused step over a random state: no read-back, slot 3 frozen
+    b = SERVE_BATCH
+    cache = model.init_cache(b, SERVE_CACHE)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for v in cache.values():
+        v.copy_(torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype))
+    before = {k: v.clone() for k, v in cache.items()}
+    _masked_fused_step(model, params, cache)
+    for k, v in cache.items():
+        if not torch.equal(v[:, 3], before[k][:, 3]) or torch.equal(v[:, 0], before[k][:, 0]):
+            raise SystemExit(f"the masked fused step changed the masked row's {k!r}, or left "
+                             f"a live row's unchanged")
+    state_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    del cache, before
+    print(f"[ssm] one masked fused decode step under set_sync_debug_mode('error'): no "
+          f"read-back; the masked row's s, shift_tm and shift_cm bit-identical, the live rows' "
+          f"changed")
+
+    _ssm_parity(model, params)
+    torch.cuda.reset_peak_memory_stats()  # from here on: serving
+
+    # the serving engine, fused then host-sampled
+    reqs = _requests(cfg, SSM_REQUESTS, SSM_PROMPT)
+    _serve(model, params, reqs[:1], "fused", max_new=2, tag="[ssm]")  # warm-up, not counted
+    torch.cuda.synchronize()
+    greedy_sample.launches = 0
+    fused = _serve(model, params, reqs, "fused", max_new=SSM_NEW, tag="[ssm]")
+    launches = greedy_sample.launches
+    print(f"[ssm] greedy_sample launches in the fused run: {launches}; "
+          f"{fused['decode_launches']} fused decode launches, {fused['prefill_launches']} "
+          f"prefill launches of 8 steps")
+    if launches == 0 or launches != fused["decode_launches"]:
+        raise SystemExit("the ssm engine did not launch greedy_sample once per fused decode "
+                         "launch")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != SSM_NEW:
+            raise SystemExit(f"ssm request {uid} finished with {len(fused['streams'][uid])} "
+                             f"tokens")
+    host = _serve(model, params, reqs, "host", max_new=SSM_NEW, tag="[ssm]")
+    if host["streams"] != fused["streams"]:
+        raise SystemExit("ssm fused and host sampling gave different token streams")
+    print(f"[ssm] fused and host token streams are bit-identical; first stream "
+          f"{fused['streams'][0][:8]}")
+    # the same prompts twice over the 4 slots: each copy takes a slot its
+    # original freed, and must start from a zero state, not from the state left there
+    copies = [(uid + len(reqs), prompt) for uid, prompt in reqs]
+    reused = _serve(model, params, reqs + copies, "fused", max_new=SSM_NEW, tag="[ssm]")
+    for uid, _ in reqs:
+        if not (reused["streams"][uid] == reused["streams"][uid + len(reqs)]
+                == fused["streams"][uid]):
+            raise SystemExit(f"ssm request {uid + len(reqs)} in a reused slot did not give the "
+                             f"stream of request {uid} in a fresh one")
+    print(f"[ssm] {len(copies)} copies of the requests, each in a slot its original freed, give "
+          f"the originals' streams bit for bit")
+
+    modes = phase_serve_modes(model, params, smi, tag="[ssm]", profiled=("fused",))
+    step_bytes = nbytes["layers"] + nbytes["head"] + b * cfg.d_model * 2 + 2 * state_bytes
+    bound = _bound_ms(step_bytes, 2.0 * n * b, BF16_FLOPS)
+    fused_ms = modes["fused"]["device_ms"]
+    print(f"[ssm] a decode step's bound at B={b}: {step_bytes} B (trunk and head read once, "
+          f"{b} embedding rows, the {state_bytes} B state read and written) = {bound[0]:.4f} ms "
+          f"({bound[1]}); fused {fused_ms:.4f} ms a step = {fused_ms / bound[0]:.2f}x it, busy "
+          f"{modes['fused']['busy_ms']:.4f} ms, idle {modes['fused']['idle']:.3f}; "
+          f"max_memory_allocated while serving={torch.cuda.max_memory_allocated()} B ({smi})")
+    del model, params, leaves
+    _free_model("[ssm]", found)
+    print(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": launches, **greedy}
 
 
 def main() -> None:
@@ -1462,11 +1733,15 @@ def main() -> None:
     del model, params
     torch.cuda.empty_cache()
     moe = phase_moe(smi)
+    ssm = phase_ssm(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
             record["launches_bridge"] = bridge_launches
             record["launches_moe"] = moe.pop("greedy_sample")
+            record["launches_ssm"] = ssm.pop("greedy_sample")
+            record["max_abs_err"] = max(record["max_abs_err"], ssm.pop("max_abs_err"))
+            record.update(ssm)  # the RWKV head's shape: times, bound and cluster
         if record["name"] == "top_k":  # the MoE router's launches: this path's kernel now
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")

@@ -26,7 +26,9 @@ launch takes ``k = min(fuse, steps - pos)`` steps, each fed the last one's
 ids, and the next launch starts from its last ids. Every token is the argmax
 of the last position's logits by ``kernels.ops.sample_op``, the hand-written
 ``greedy_sample`` on the card. A run that would write a cache position past
-``cache_len`` raises before its first launch.
+``cache_len`` raises before its first launch; a model whose cache has no
+position axis (``--arch rwkv6-7b``, a recurrent state) runs any number of
+steps, as the reference's loop does.
 """
 
 from __future__ import annotations
@@ -86,9 +88,10 @@ class ServeRun:
 
 class _Loop:
     """What a fused launch reads and writes, each in place at a fixed
-    address, as a graph replay needs: the KV cache, the (B, 1) int32 tokens,
-    the position (a 0-d int64 device tensor, the type ``decode_step`` makes
-    of an int) and the (fuse, B) int32 ids."""
+    address, as a graph replay needs: the cache (KV rows, or a recurrent
+    state; ``decode_step`` updates every leaf in place), the (B, 1) int32
+    tokens, the position (a 0-d int64 device tensor, the type
+    ``decode_step`` makes of an int) and the (fuse, B) int32 ids."""
 
     def __init__(self, model: Model, params: dict, batch: int, cache_len: int, fuse: int):
         self.model, self.params = model, params
@@ -138,14 +141,15 @@ def serve(model: Model, params: dict, *, batch: int = 4, steps: int = 64,
           cache_len: int = 256, mode: str = "concurrent", fuse: int = 8) -> ServeRun:
     """Run the reference's decode loop in ``mode`` on ``model.device``; returns
     the timed loop's ids and times. Raises ``ValueError`` before any launch
-    where the run would write a cache position past ``cache_len``."""
+    where the run would write a cache position past ``cache_len`` (only a
+    cache with a position axis has one: ``Model.cache_has_positions``)."""
     if mode not in MODES:
         raise ValueError(f"mode is one of {MODES}, not {mode!r}")
     if batch < 1 or fuse < 1:
         raise ValueError(f"batch and fuse are at least 1, not {batch} and {fuse}")
     fused = mode == "fused"
     written = max(steps, fuse if fused else 1)  # the warm-up and the loop write 0 .. written-1
-    if written > cache_len:
+    if model.cache_has_positions and written > cache_len:
         raise ValueError(f"{mode} serving of {steps} steps (fuse {fuse}) writes cache position "
                          f"{written - 1}, past a cache of {cache_len}: raise --cache-len")
     on_card = model.device.type == "cuda"

@@ -1,18 +1,20 @@
-"""Neural building blocks of the dense and MoE families, as plain functions
-on tensors.
+"""Neural building blocks of the dense, MoE and RWKV-6 families, as plain
+functions on tensors.
 
 The counterpart of ``repro/models/layers.py`` for the layers a dense or MoE
 GQA transformer runs: norms, rotary embedding, attention with a per-slot KV
 cache, the SwiGLU MLP, and the top-k token-choice MoE MLP with its
-sort-based, capacity-limited dispatch. Parameters are plain dicts of
-tensors with the reference's names and layouts, so a test can load the
-reference's weights and compare like with like.
+sort-based, capacity-limited dispatch; and for RWKV-6 (Finch): the time mix
+with its matrix-valued recurrent state and data-dependent decay, and the
+squared-ReLU channel mix. Parameters are plain dicts of tensors with the
+reference's names and layouts, so a test can load the reference's weights
+and compare like with like.
 
 Compute dtype is bf16, with the same f32 islands as the reference: norm and
 rope math in f32, attention scores and softmax in f32 and then cast to bf16,
-the MoE router in f32. int8 KV, ``chunked_attention``, the MoE
-``shard_map`` all-to-all, Mamba and RWKV are not ported yet (``ROADMAP.md``,
-Queue 1).
+the MoE router in f32, the RWKV decay and state in f32. int8 KV,
+``chunked_attention``, the MoE ``shard_map`` all-to-all and Mamba are not
+ported yet (``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
@@ -336,3 +338,133 @@ def moe_apply(params: dict, cfg: ModelConfig,
     yb = _moe_ffn(params, buf)
     out = _moe_combine(cfg, yb, se, sp, st, slot, keep, t, d)
     return out.reshape(b, s, d), aux
+
+
+# --------------------------------------------------------------------------
+# RWKV-6 (Finch) time mix + channel mix: data-dependent decay, attention-free
+# --------------------------------------------------------------------------
+
+
+def rwkv_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
+    d = cfg.d_model
+    dev = gen.device
+
+    def full(shape: tuple[int, ...], value: float) -> torch.Tensor:
+        return torch.full((stack, *shape), value, dtype=torch.float32, device=dev)
+
+    return {
+        "wr": _dense_init(gen, (d, d), stack=stack),
+        "wk": _dense_init(gen, (d, d), stack=stack),
+        "wv": _dense_init(gen, (d, d), stack=stack),
+        "wg": _dense_init(gen, (d, d), stack=stack),
+        "wo": _dense_init(gen, (d, d), stack=stack),
+        "w_decay": _dense_init(gen, (d, d), stack=stack),  # data-dependent decay proj
+        "decay_bias": full((d,), -6.0),
+        "mix": full((5, d), 0.5),  # token-shift mixes r, k, v, g, w
+        "bonus": full((d,), 0.0),  # per-channel "u" bonus
+    }
+
+
+def _rwkv_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, d // head_dim, head_dim)
+
+
+def _rwkv_mixes(params: dict, x: torch.Tensor, prev: torch.Tensor) -> list[torch.Tensor]:
+    """The five token-shift lerps (r, k, v, g, w) in the activations' dtype,
+    ``1 - mix`` included, as the reference casts them."""
+    mix = params["mix"].to(x.dtype)
+    return [x * mix[i] + prev * (1 - mix[i]) for i in range(5)]
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it in the activations' dtype: each op
+    of x · 1/(1 + e^(-x)) rounded to bf16, where ``F.silu`` rounds once and
+    gives another bf16 value for a third of inputs."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _rwkv_decay(params: dict, xw: torch.Tensor) -> torch.Tensor:
+    """exp(-exp(f32(xw @ w_decay) + decay_bias)): a decay in (0, 1), in f32."""
+    return torch.exp(-torch.exp((xw @ params["w_decay"]).float() + params["decay_bias"]))
+
+
+def _wkv_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence over (B, H, K) r, k, w, u and (B, H, V) v
+    with the (B, H, K, V) f32 state: returns (out (B, H, V), new state).
+
+    ``kv`` is an outer product and ``r · (s + u·kv)`` a contraction over K.
+    Both are written as elementwise products and a sum, never ``einsum`` or
+    ``bmm``: PyTorch routes an f32 product through TF32 when its global
+    switch is on (and a K = 1 outer product too), and this state must stay
+    in full f32 whatever the process has set."""
+    kv = k.float()[..., :, None] * v.float()[..., None, :]
+    out = torch.sum(r.float()[..., :, None] * (state + u[..., None] * kv), dim=-2)
+    return out, w[..., None] * state + kv
+
+
+def rwkv_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training/prefill over (B, S, d) from a zero state: the reference's
+    ``lax.scan`` over time is a Python loop over S."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]  # token shift
+    xr, xk, xv, xg, xw = _rwkv_mixes(params, x, shifted)
+
+    r = _rwkv_heads(xr @ params["wr"], hd)  # (B,S,H,K)
+    k = _rwkv_heads(xk @ params["wk"], hd)
+    v = _rwkv_heads(xv @ params["wv"], hd)
+    g = _silu(xg @ params["wg"])  # (B,S,D)
+    w = _rwkv_heads(_rwkv_decay(params, xw), hd)  # (B,S,H,K)
+    u = params["bonus"].reshape(nh, hd).expand(b, nh, hd)  # (B,H,K)
+
+    state = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
+    outs = []
+    for t in range(s):
+        out, state = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
+        outs.append(out)
+    out = torch.stack(outs, 1).reshape(b, s, d).to(x.dtype)
+    return (out * g) @ params["wo"]
+
+
+def rwkv_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              state: dict) -> tuple[torch.Tensor, dict]:
+    """Single-token decode. x: (B, 1, d); state: {"s": (B,H,K,V) f32,
+    "shift": (B, d)}. Returns (y (B, 1, d), the new state as new tensors):
+    the caller decides which rows of its cache take them."""
+    b, _, d = x.shape
+    hd = cfg.rwkv_head_dim
+    xt = x[:, 0]
+    xr, xk, xv, xg, xw = _rwkv_mixes(params, xt, state["shift"])
+
+    r = (xr @ params["wr"]).reshape(b, -1, hd)
+    k = (xk @ params["wk"]).reshape(b, -1, hd)
+    v = (xv @ params["wv"]).reshape(b, -1, hd)
+    g = _silu(xg @ params["wg"])
+    w = _rwkv_decay(params, xw).reshape(b, -1, hd)
+    u = params["bonus"].reshape(-1, hd).expand(b, -1, hd)
+
+    out, new_s = _wkv_step(r, k, v, w, u, state["s"])
+    out = out.reshape(b, d).to(x.dtype)
+    y = (out * g) @ params["wo"]
+    return y[:, None], {"s": new_s, "shift": xt}
+
+
+def rwkv_channel_mix_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "wk": _dense_init(gen, (d, ff), stack=stack),
+        "wv": _dense_init(gen, (ff, d), stack=stack),
+        "mix": torch.full((stack, 1, d), 0.5, dtype=torch.float32, device=gen.device),
+    }
+
+
+def rwkv_channel_mix(params: dict, x: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
+    """Squared-ReLU MLP on the token-shift lerp; relu and square in bf16."""
+    mix = params["mix"][0].to(x.dtype)
+    xk = x * mix + shifted * (1 - mix)
+    h = torch.square(torch.relu(xk @ params["wk"]))
+    return h @ params["wv"]

@@ -1,24 +1,29 @@
-"""The model facade of the port: the dense and MoE families, for serving.
+"""The model facade of the port: the dense, MoE and RWKV-6 families, for
+serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
 ``family`` ``"dense"`` and ``"moe"`` (SwiGLU; the MoE MLP in every layer in
-place of the dense one): ``init`` draws seeded weights like the reference's
-``Model.init`` (same tree, shapes, scales and dtypes; other random numbers),
-``forward`` is the full-sequence path, and ``init_cache`` /
-``decode_step`` / ``decode_and_sample`` / ``prefill_chunk`` are the serving
-path over a per-slot KV cache.
+place of the dense one) and ``"ssm"`` (RWKV-6: a time mix and a channel mix
+a layer, LayerNorm with bias): ``init`` draws seeded weights like the
+reference's ``Model.init`` (same tree, shapes, scales and dtypes; other
+random numbers), ``forward`` is the full-sequence path, and ``init_cache``
+/ ``decode_step`` / ``decode_and_sample`` / ``prefill_chunk`` are the
+serving path over a per-slot KV cache, or for ``ssm`` a recurrent state
+with no position axis.
 
 Layouts follow the reference so tests compare like with like: parameters
 are stacked per layer under a leading ``n_layers`` axis (the reference's
 ``lax.scan`` becomes a Python loop over layers), and the cache is
-``(n_layers, B, max_len, Hkv, D)``. Where the reference donates the cache
-and gets a new one back, the port updates it in place and returns the same
-dict.
+``(n_layers, B, max_len, Hkv, D)`` (``ssm``: ``s`` (n_layers, B, H, K, V)
+f32, ``shift_tm`` and ``shift_cm`` (n_layers, B, d)). Where the reference
+donates the cache and gets a new one back, the port updates every leaf in
+place, at a fixed address, and returns the same dict.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
 from . import layers as L
@@ -38,11 +43,11 @@ def _layer(tree: dict, i: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family not in ("dense", "moe") or cfg.mlp_kind != "swiglu":
+        if cfg.family not in ("dense", "moe", "ssm") or cfg.mlp_kind != "swiglu":
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.mlp_kind} MLP) is not ported; the port "
-                f"runs dense and moe with SwiGLU, and hybrid, ssm, encdec and vlm are "
-                f"queued in ROADMAP.md, Queue 1, \"The other families\"")
+                f"runs dense and moe with SwiGLU and ssm (RWKV-6), and hybrid, encdec "
+                f"and vlm are queued in ROADMAP.md, Queue 1, \"The other families\"")
         if cfg.cache_quant != "none" or cfg.attn_chunk:
             raise NotImplementedError(
                 "int8 KV and chunked attention are not ported: ROADMAP.md, "
@@ -50,30 +55,50 @@ class Model:
         self.cfg = cfg
         self.device = torch.device(device)
 
+    @property
+    def cache_has_positions(self) -> bool:
+        """Whether the cache has a position axis (a KV cache of ``max_len``
+        rows a slot), so a write past ``max_len`` exists; an ``ssm`` state
+        has none, and decodes any number of steps."""
+        return self.cfg.family != "ssm"
+
     # ================================================================ params
 
     def init(self, seed: int) -> dict:
         """Seeded weights on ``self.device``, in the reference's tree: the
-        MoE family has ``layers.moe`` in place of ``layers.mlp``."""
+        MoE family has ``layers.moe`` in place of ``layers.mlp``; ``ssm``
+        has ``layers.{tm_norm, tm, cm_norm, cm}``, its norms (and the final
+        one) LayerNorms with a bias ``b``."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n, d = cfg.n_layers, cfg.d_model
 
-        def ones(*shape):
-            return torch.ones(shape, dtype=torch.float32, device=self.device)
+        def norm(*shape):
+            w = {"w": torch.ones(shape, dtype=torch.float32, device=self.device)}
+            if cfg.family == "ssm":  # LayerNorm with a bias
+                w["b"] = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            return w
 
         params: dict = {
             "embed": L._dense_init(gen, (cfg.vocab_size, d)),
-            "final_norm": {"w": ones(d)},
-            "layers": {
-                "attn_norm": {"w": ones(n, d)},
-                "attn": L.attention_init(gen, cfg, stack=n),
-                "mlp_norm": {"w": ones(n, d)},
-            },
+            "final_norm": norm(d),
         }
+        if cfg.family == "ssm":
+            params["layers"] = {
+                "tm_norm": norm(n, d),
+                "tm": L.rwkv_init(gen, cfg, stack=n),
+                "cm_norm": norm(n, d),
+                "cm": L.rwkv_channel_mix_init(gen, cfg, stack=n),
+            }
+        else:
+            params["layers"] = {
+                "attn_norm": norm(n, d),
+                "attn": L.attention_init(gen, cfg, stack=n),
+                "mlp_norm": norm(n, d),
+            }
         if cfg.family == "moe":
             params["layers"]["moe"] = L.moe_init(gen, cfg, stack=n)
-        else:
+        elif cfg.family == "dense":
             params["layers"]["mlp"] = L.mlp_init(gen, cfg, stack=n)
         if not cfg.tie_embeddings:
             params["head"] = L._dense_init(gen, (d, cfg.vocab_size))
@@ -88,23 +113,42 @@ class Model:
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits, moe_aux_loss): the sum of the layers' aux losses,
-        zero for the dense family."""
+        zero for the dense and ssm families."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"]]  # (B, S, d)
+        if cfg.family == "ssm":
+            x = self._rwkv_trunk(params["layers"], x)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            x, aux = self._uniform_trunk(params["layers"], x)
+        x = _norm(params["final_norm"], x, cfg.norm_eps)
+        logits = x @ self._head(params)
+        return logits, aux
+
+    def _uniform_trunk(self, trunk: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+            lp = _layer(trunk, i)
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions)
             y, a = self._mlp(lp, x)
             x = x + y
             if a is not None:
                 aux = aux + a
-        x = _norm(params["final_norm"], x, cfg.norm_eps)
-        logits = x @ self._head(params)
-        return logits, aux
+        return x, aux
+
+    def _rwkv_trunk(self, trunk: dict, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            lp = _layer(trunk, i)
+            x = x + L.rwkv_apply(lp["tm"], cfg, _norm(lp["tm_norm"], x, cfg.norm_eps))
+            h = _norm(lp["cm_norm"], x, cfg.norm_eps)
+            shifted = F.pad(h, (0, 0, 1, 0))[:, :-1]
+            x = x + L.rwkv_channel_mix(lp["cm"], h, shifted)
+        return x
 
     def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer's MLP on ``x`` after its norm: (output, MoE aux loss or None)."""
@@ -116,7 +160,19 @@ class Model:
     # ================================================================= serve
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """Zeros: a KV cache of ``max_len`` rows a slot, or for ``ssm`` the
+        recurrent state, whose size does not depend on ``max_len``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            n, hd = cfg.n_layers, cfg.rwkv_head_dim
+            return {
+                "s": torch.zeros((n, batch_size, cfg.d_model // hd, hd, hd),
+                                 dtype=torch.float32, device=self.device),
+                "shift_tm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
+                                        device=self.device),
+                "shift_cm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
+                                        device=self.device),
+            }
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_)
         return {
             "k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device),
@@ -147,13 +203,24 @@ class Model:
         competes with the live rows for expert capacity, so the live rows'
         logits depend on it. A row whose position lies past ``max_len``
         attends to the cache as it is (XLA drops that write), and may be
-        asked for only under a mask that leaves it out."""
+        asked for only under a mask that leaves it out.
+
+        ``ssm`` reads the position only to tell a slot's first token: a row
+        at position 0 starts from a zero state, whatever its slot holds (a
+        freed slot keeps its last request's state; the reference reads that
+        state on, ROADMAP.md Queue 3). Each layer's state leaves then take
+        the new rows where ``update_mask`` selects (:meth:`_masked_cache`),
+        so a masked row keeps its bits at any position."""
         x = params["embed"][tokens]  # (B, 1, d)
-        b = x.shape[0]
-        pos = torch.as_tensor(pos, device=x.device)
-        if pos.dim() == 0:
-            pos = pos.expand(b)
-        x = self._uniform_decode(params["layers"], cache, x, pos, update_mask)
+        if self.cfg.family == "ssm":
+            fresh = torch.as_tensor(pos, device=x.device) == 0
+            x = self._rwkv_decode(params["layers"], cache, x, fresh, update_mask)
+        else:
+            b = x.shape[0]
+            pos = torch.as_tensor(pos, device=x.device)
+            if pos.dim() == 0:
+                pos = pos.expand(b)
+            x = self._uniform_decode(params["layers"], cache, x, pos, update_mask)
         x = _norm(params["final_norm"], x, self.cfg.norm_eps)
         return x @ self._head(params), cache
 
@@ -223,3 +290,42 @@ class Model:
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)
             x = x + self._mlp(lp, x)[0]
         return x
+
+    def _rwkv_decode(self, trunk: dict, cache: dict, x: torch.Tensor, fresh: torch.Tensor,
+                     update_mask: torch.Tensor | None) -> torch.Tensor:
+        """The RWKV trunk for one token. ``shift_tm`` takes the time mix's
+        normed input and ``shift_cm`` the channel mix's. The step reads a
+        copy of the state, zero on the rows ``fresh`` ((B,) or 0-d bool,
+        on the card: no read-back) selects, made in one pass over all
+        layers; the rows it writes go to the cache itself."""
+        cfg = self.cfg
+        fresh = fresh.reshape(-1, 1)
+        state = {"s": torch.where(fresh[..., None, None], 0.0, cache["s"]),
+                 "shift_tm": torch.where(fresh, 0.0, cache["shift_tm"]),
+                 "shift_cm": torch.where(fresh, 0.0, cache["shift_cm"])}
+        for i in range(cfg.n_layers):
+            lp = _layer(trunk, i)
+            h = _norm(lp["tm_norm"], x, cfg.norm_eps)
+            y, st = L.rwkv_step(lp["tm"], cfg, h, {"s": state["s"][i],
+                                                  "shift": state["shift_tm"][i]})
+            x = x + y
+            h = _norm(lp["cm_norm"], x, cfg.norm_eps)
+            x = x + L.rwkv_channel_mix(lp["cm"], h[:, 0], state["shift_cm"][i])[:, None]
+            self._masked_cache(cache, {"s": st["s"], "shift_tm": st["shift"],
+                                       "shift_cm": h[:, 0]}, update_mask, i)
+        return x
+
+    @staticmethod
+    def _masked_cache(cache: dict, new: dict, update_mask: torch.Tensor | None,
+                      layer: int) -> None:
+        """The reference's per-leaf batch-row select, in place: layer
+        ``layer`` of each leaf named in ``new`` takes its rows where
+        ``update_mask`` is True (every row without a mask), and the other
+        rows keep their bits. The batch axis is 1 of each stacked leaf, 0
+        of the layer's view. ``copy_`` keeps the leaf's address, so a CUDA
+        graph replay reads the state the last step wrote."""
+        for key, rows in new.items():
+            buf = cache[key][layer]
+            if update_mask is not None:
+                rows = torch.where(update_mask.view(-1, *[1] * (rows.dim() - 1)), rows, buf)
+            buf.copy_(rows)

@@ -367,7 +367,15 @@ def test_profile_from_arch_gives_the_references_tiles_for_qwen2():
     assert plain(t) == plain(j)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "rwkv6-7b", "whisper-medium", "no-such-arch"])
+def test_profile_from_arch_gives_the_references_tiles_for_rwkv6():
+    j = jcluster.TenantProfile.from_arch("r", "rwkv6-7b", accel="opengemm")
+    t = tcluster.TenantProfile.from_arch("r", "rwkv6-7b", accel="opengemm")
+    assert t.dims == j.dims == (16, 64, 64)
+    assert plain(t) == plain(j)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "jamba-1.5-large-398b", "whisper-medium",
+                                  "no-such-arch"])
 def test_profile_from_arch_of_an_unported_family_points_at_the_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tcluster.TenantProfile.from_arch("x", arch)

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 serves on the CPU with both made unimportable, through the serving engine,
 through ``python -m repro_torch.launch.serve`` in each of its modes (the
-MoE family through both too), and through the closed-loop bridge into the
+MoE and RWKV-6 families through both too), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
 import their modules lazily, so the run calls them)."""
 
@@ -44,6 +44,15 @@ assert sorted(len(r.generated) for r in moe_done) == [3, 3, 3], moe_done
 sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", "phi3.5-moe-42b-a6.6b",
             "--steps", "6", "--fuse", "2", "--mode", "fused"]
 runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+rwkv = Model(dataclasses.replace(get("rwkv6-7b").reduced(), remat="none"), device="cpu")
+engine = ServingEngine(rwkv, rwkv.init(0), max_slots=2, max_len=32, prefill_chunk=2)
+for i, p in enumerate([[5, 9, 2], [7, 1], [4]]):
+    engine.submit(Request(uid=i, prompt=p, max_new_tokens=3))
+rwkv_done = engine.run_until_done()
+assert sorted(len(r.generated) for r in rwkv_done) == [3, 3, 3], rwkv_done
+sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", "rwkv6-7b",
+            "--steps", "6", "--fuse", "2", "--cache-len", "4", "--mode", "fused"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
 from repro_torch.bridge import ClosedLoopDriver, TenantEngine
 from repro_torch.cluster import Cluster
 tenants = []
@@ -75,6 +84,7 @@ def test_port_serves_with_jax_and_repro_unimportable():
     for mode, steps in (("sequential", 5), ("concurrent", 5), ("fused", 0)):
         assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
     assert "[serve] arch=phi3.5-moe-42b-a6.6b mode=fused batch=4 steps=4: " in out.stdout
+    assert "[serve] arch=rwkv6-7b mode=fused batch=4 steps=4: " in out.stdout
 
 
 _CALIBRATE_WITHOUT_JAX = """

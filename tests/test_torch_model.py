@@ -41,10 +41,10 @@ def _tokens(cfg, shape, seed=1):
 def test_config_and_registry_match_reference():
     assert dataclasses.asdict(torch_get("qwen2-0.5b")) == dataclasses.asdict(get("qwen2-0.5b"))
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        torch_get("rwkv6-7b")
+        torch_get("jamba-1.5-large-398b")
 
 
-@pytest.mark.parametrize("change", [{"family": "hybrid"}, {"family": "ssm"},
+@pytest.mark.parametrize("change", [{"family": "hybrid"}, {"family": "encdec"},
                                     {"cache_quant": "int8"}, {"attn_chunk": 64}])
 def test_model_rejects_what_is_not_ported(change):
     cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), **change)

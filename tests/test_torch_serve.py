@@ -53,15 +53,16 @@ def _margin(logits):
 
 
 def _jax_serve(jmodel, jparams, mode: str, *, batch: int, steps: int, cache_len: int,
-               fuse: int) -> tuple[np.ndarray, np.ndarray]:
+               fuse: int, compiler_options: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
     """The reference's decode loop (``repro/launch/serve.py``), returning the
-    timed loop's ids (produced, B) and each step's top-two logit margins."""
+    timed loop's ids (produced, B) and each step's top-two logit margins.
+    ``compiler_options`` go to both ``jax.jit`` calls."""
     import jax
     import jax.numpy as jnp
 
     cache = jmodel.init_cache(batch, cache_len)
     tokens = jnp.ones((batch, 1), jnp.int32)
-    decode = jax.jit(jmodel.decode_step, donate_argnums=(1,))
+    decode = jax.jit(jmodel.decode_step, donate_argnums=(1,), compiler_options=compiler_options)
 
     def fused_decode(params, cache, tokens, pos0, k):
         def body(carry, i):
@@ -74,7 +75,8 @@ def _jax_serve(jmodel, jparams, mode: str, *, batch: int, steps: int, cache_len:
         )
         return out, cache
 
-    fused = jax.jit(fused_decode, static_argnames=("k",), donate_argnums=(1,))
+    fused = jax.jit(fused_decode, static_argnames=("k",), donate_argnums=(1,),
+                    compiler_options=compiler_options)
     ids, margins = [], []
     if mode == "fused":
         _, cache = fused(jparams, cache, tokens, jnp.int32(0), fuse)
