@@ -21,7 +21,8 @@ Phases, each printing its results; any failure exits non-zero:
    counts read just after; then the same requests with ``sampling="host"``,
    whose token streams must be bit-identical.
 5. Full-width numerics: ``forward`` logits against teacher-forced
-   ``decode_step`` logits.
+   ``decode_step`` logits (B = 2, S = 16), at test_decode_parity's
+   tolerances with top-1 held.
 6. Serve loop: ``repro_torch.launch.serve.serve`` at its command's
    defaults (batch 4, 64 steps, cache 256, fuse 8) in its three modes,
    and fused once more at fuse 1, each printing ms per step and tokens/s
@@ -103,8 +104,7 @@ Phases, each printing its results; any failure exits non-zero:
    of bf16 weights seeded on the card), after the MoE model is freed, with
    the parameter count read from the tree. greedy_sample exactly against
    its plain version at the head's shapes, (4, 65536) and (1, 65536) bf16,
-   and on ties and NaNs straddling the chunk boundaries of the plan it
-   takes there, each call printing its cluster size, then timed at both
+   as in 13 (``_head_greedy_check``), then timed at both
    beside torch.argmax and its bound; ``forward`` against teacher-forced
    ``decode_step`` (B = 2, S = 8): bit for bit with the decode batch padded
    to the forward's 16 product rows, and at 2 rows printed against
@@ -120,6 +120,42 @@ Phases, each printing its results; any failure exits non-zero:
    weights once and the state twice; peak memory and the phase's seconds.
    The record's ``launches_ssm`` are this path's greedy_sample launches,
    its ``*_ssm`` keys the (4, 65536) times and bound.
+13. Encoder-decoder: whisper-medium whole (24 encoder and 24 decoder
+   layers at its published widths, 758,002,688 parameters, 1.52 GB of bf16
+   weights seeded on the card), after the RWKV model is freed, with the
+   parameter count read from the tree. greedy_sample exactly against its
+   plain version at the head's shapes, (4, 51865) and (1, 51865) bf16, on
+   random rows, on ties and NaNs straddling the chunk boundaries of the
+   plan it takes there, and with the maximum in the scalar head and in the
+   scalar tail of each row (a row is 103,730 B, so row r starts 2r bytes
+   past a 16-byte boundary; the one row of B = 1 is laid 2 bytes past
+   one), printing each row's chunk addresses, then timed at both beside
+   torch.argmax and its bound; the encoder over 4 seeded 30 s windows
+   (1,500 frames each) timed by CUDA events beside its operations bound,
+   with its peak memory, and profiled (its six costliest device operations
+   printed); the cross K/V of each window (each decoder layer's
+   ``cross_attn.wk``/``wv`` of the encoder output); ``forward`` against
+   teacher-forced ``decode_step`` as in 5 (B = 2, S = 16, at
+   test_decode_parity's tolerances), over the cross K/V of the same frames; one decode step over the 4 windows whose logits must follow
+   each slot's window (two slots' windows swapped swap their rows bit for
+   bit, zero windows give other rows); one masked fused decode step under
+   ``set_sync_debug_mode("error")``, after which the masked row's
+   ``k``/``v`` and every ``xk``/``xv`` byte must be bit-identical and
+   every leaf at its address; the serving engine (4 requests of 4-32
+   seeded tokens and a copy of each, 32 new tokens, 4 slots x 448,
+   prefill chunk 8, each request carrying its window, which admission
+   writes into its slot; each copy lands in a slot whose last window was
+   another's) fused then host-sampled, with bit-identical streams,
+   greedy_sample once per fused decode launch, counted from 0 just before
+   the fused run and read just after, and each copy's decode logits equal
+   to its original's bit for bit; one eager fused decode step profiled
+   (device ops, busy ms, the six costliest kernels and the eight costliest
+   operators by input shapes; no operator but ``bmm`` may read a
+   window-sized tensor, so nothing copies ``xk``/``xv``) beside the bound
+   of reading the decoder, the tied head, the cross K/V and the KV rows up
+   to the step's position once; peak memory and the phase's seconds. The
+   record's ``launches_encdec`` are this path's greedy_sample launches, its
+   ``*_encdec`` keys the (4, 51865) times and bound.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -164,6 +200,10 @@ SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded t
 # forward vs decode at B = 2 rows: each bf16 path's largest distance from an f32
 # forward; the two lay 0.71-0.79 apart from it (a ratio up to 1.11, PERF.md §6)
 SSM_F32_RATIO = 1.25
+# the [encdec] phase: whisper-medium whole, at its published widths and depth
+ENCDEC_ARCH, ENCDEC_V = "whisper-medium", 51_865
+ENCDEC_REQUESTS, ENCDEC_PROMPT, ENCDEC_NEW = 8, (4, 33), 32  # prompts of 4-32 seeded tokens
+ENCDEC_SLOTS, ENCDEC_MAX_LEN = 4, 448  # whisper's max_target_positions
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
@@ -829,15 +869,30 @@ def _requests(cfg, n: int = N_REQUESTS, lengths: tuple = (16, 97)) -> list[tuple
 
 
 def _serve(model, params, reqs, sampling: str, max_new: int = MAX_NEW,
-           tag: str = "[serve]") -> dict:
+           tag: str = "[serve]", max_len: int = 512, windows: dict | None = None,
+           rows: dict | None = None) -> dict:
+    """The requests through a ``ServingEngine`` of 4 slots, prefill chunk 8.
+    ``windows[uid]``, where given, is request ``uid``'s ``cross_kv``;
+    ``rows``, where given (host sampling), takes each decode launch's
+    (slot, logit row) of every live slot under its request's uid (one
+    device copy a row, no read-back)."""
     from repro_torch.serving import Request, ServingEngine
+
+    def recording(p, cache, tokens, pos, live):
+        logits, cache = model.decode_step(p, cache, tokens, pos, live)
+        for slot, req in enumerate(engine.slot_req):
+            if req is not None:
+                rows.setdefault(req.uid, []).append((slot, logits[slot, 0].clone()))
+        return logits, cache
 
     decode_launches = []
     engine = ServingEngine(
-        model, params, max_slots=4, max_len=512, prefill_chunk=8, sampling=sampling,
+        model, params, max_slots=4, max_len=max_len, prefill_chunk=8, sampling=sampling,
+        decode_fn=recording if rows is not None else None,
         on_launch=lambda d: decode_launches.append(d) if "prefill_tokens" not in d else None)
     for uid, prompt in reqs:
-        engine.submit(Request(uid=uid, prompt=list(prompt), max_new_tokens=max_new))
+        engine.submit(Request(uid=uid, prompt=list(prompt), max_new_tokens=max_new,
+                              cross_kv=(windows or {}).get(uid)))
     decode_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -886,13 +941,20 @@ def phase_main_path(model, params) -> dict:
     return {"greedy_sample": launches}
 
 
-def phase_numerics(model, params) -> None:
+def phase_numerics(model, params, tag: str = "[numerics]", inputs: dict | None = None,
+                   prepare=None) -> None:
+    """``forward`` against teacher-forced ``decode_step`` at B = 2, S = 16,
+    at test_decode_parity's tolerances. ``inputs`` adds to ``forward``'s
+    batch (an encoder's frames), and ``prepare(cache)`` fills the decode
+    cache to match (their cross K/V) before the first step."""
     b, s = 2, 16
     gen = torch.Generator(device=model.device).manual_seed(SEED + 1)
     tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
                            device=model.device)
-    full, _ = model.forward(params, {"tokens": tokens})
+    full, _ = model.forward(params, {**(inputs or {}), "tokens": tokens})
     cache = model.init_cache(b, s)
+    if prepare is not None:
+        prepare(cache)
     steps = []
     for i in range(s):
         lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1], i)
@@ -900,11 +962,14 @@ def phase_numerics(model, params) -> None:
     a = full.float().cpu().numpy()
     d = torch.stack(steps, 1).float().cpu().numpy()
     top1 = float((a.argmax(-1) == d.argmax(-1)).mean())
-    print(f"[numerics] forward vs decode_step B={b} S={s}: max_abs_diff="
-          f"{np.abs(a - d).max():.6f}, top1 agreement={top1:.4f}")
+    top2 = np.sort(a, -1)[..., -2:]
+    finite = bool(np.isfinite(a).all() and np.isfinite(d).all())
+    print(f"{tag} forward vs decode_step B={b} S={s}: max_abs_diff="
+          f"{np.abs(a - d).max():.6f}, top1 agreement={top1:.4f}; smallest top-two margin of "
+          f"the forward {float((top2[..., 1] - top2[..., 0]).min()):.6f}; finite={finite}")
     np.testing.assert_allclose(a, d, rtol=PARITY_RTOL, atol=PARITY_ATOL)
-    if top1 < PARITY_TOP1:
-        raise SystemExit(f"top-1 agreement {top1} < {PARITY_TOP1}")
+    if top1 < PARITY_TOP1 or not finite:
+        raise SystemExit(f"top-1 agreement {top1} < {PARITY_TOP1}, or non-finite logits")
 
 
 def _eager_fused_ids(model, params, fuse: int, steps: int = SERVE_STEPS,
@@ -927,20 +992,40 @@ def _eager_fused_ids(model, params, fuse: int, steps: int = SERVE_STEPS,
     return torch.cat(ids).cpu()
 
 
-def _profiled(fn, steps_run: int) -> dict:
+def _profiled(fn, steps_run: int, top: int = 0, shapes: bool = False) -> dict:
     """Device operations (kernels, copies, fills) a decode step and their
     summed device time, by torch.profiler over ``fn()``, which runs
-    ``steps_run`` decode steps."""
+    ``steps_run`` decode steps; with ``top``, also the ``top`` operations
+    that took most device time, as (name, ms a step, calls a step); with
+    ``shapes``, every PyTorch operator that launched device work, by its
+    input shapes, as (name, input shapes, device ms a step, calls a step),
+    most device time first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         fn()
         torch.cuda.synchronize()
     device = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
-    return {"ops": sum(r.count for r in device) / steps_run,
-            "busy_ms": sum(r.self_device_time_total for r in device) / 1e3 / steps_run}
+    out = {"ops": sum(r.count for r in device) / steps_run,
+           "busy_ms": sum(r.self_device_time_total for r in device) / 1e3 / steps_run}
+    if top:
+        device.sort(key=lambda r: r.self_device_time_total, reverse=True)
+        out["top"] = [(r.key[:60], r.self_device_time_total / 1e3 / steps_run,
+                       r.count / steps_run) for r in device[:top]]
+    if shapes:
+        ops = [r for r in prof.key_averages(group_by_input_shape=True)
+               if r.device_type == DeviceType.CPU and r.self_device_time_total > 0]
+        ops.sort(key=lambda r: r.self_device_time_total, reverse=True)
+        out["by_shape"] = [(r.key, r.input_shapes, r.self_device_time_total / 1e3 / steps_run,
+                            r.count / steps_run) for r in ops]
+    return out
+
+
+def _top(prof: dict) -> str:
+    return "; ".join(f"{name} {ms:.4f} ms x{calls:g}" for name, ms, calls in prof["top"])
 
 
 def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
@@ -1485,42 +1570,76 @@ def phase_moe(smi: str) -> dict:
     return {"top_k": counted["top_k"], "greedy_sample": counted["greedy_sample"], **router}
 
 
-def _ssm_greedy_check(smi: str) -> dict:
-    """greedy_sample exactly against its plain version at the RWKV head's
-    shapes, (4, 65536) and (1, 65536) bf16, random and with ties and NaNs
-    straddling every chunk boundary of the plan it takes there, each call
-    printing its plan and cluster size; then timed at both beside
-    torch.argmax and its bound."""
+def _chunk_layout(x: torch.Tensor, plan) -> str:
+    """Where each row's first and last chunk start, modulo 16 bytes, and how
+    many elements the kernel takes one by one before the first 16-byte
+    boundary (head) and after the last whole vector (tail)."""
+    b, v = x.shape
+    size, vec = x.element_size(), 16 // x.element_size()
+    parts = []
+    for r in range(b):
+        for start, stop in (plan.bounds(v)[0], plan.bounds(v)[-1]):
+            addr = x.data_ptr() + (r * v + start) * size
+            head = min((16 - addr % 16) % 16 // size, stop - start)
+            parts.append(f"row {r} chunk@{start}: +{addr % 16} mod 16, head {head}, "
+                         f"tail {(stop - start - head) % vec}")
+    return f"row stride {v * size} B; " + "; ".join(parts)
+
+
+def _head_greedy_check(smi: str, tag: str, v: int, seed: int) -> dict:
+    """greedy_sample exactly against its plain version at a served head's
+    shapes, (4, v) and (1, v) bf16: random rows, ties and NaNs straddling
+    every chunk boundary of the plan it takes there, and the maximum in the
+    scalar head and in the scalar tail of each row (at an odd v a bf16 row
+    starts 2r bytes past a 16-byte boundary; the one row of B = 1 is laid 2
+    bytes past one), each call printing its cluster and the rows' chunk
+    addresses; then timed at both beside torch.argmax and its bound. The
+    record's keys take the phase's name as a suffix."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sampling import greedy_sample, plan_greedy_sample
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst, out = 0, {}
     for b in (4, 1):
-        x = torch.randn((b, SSM_V), generator=gen, device="cuda").to(torch.bfloat16)
-        for label, case in (("random", x),
-                            ("across cluster chunks", _across_cluster_chunks(b, SSM_V).to(
-                                torch.bfloat16))):
+        plan, offset = plan_greedy_sample(b, v), 2 if b == 1 else 0
+
+        def laid(rows: torch.Tensor) -> torch.Tensor:  # row 0 `offset` bytes past a boundary
+            rows = rows.to(torch.bfloat16)
+            return _off_alignment(rows) if offset else rows
+
+        head = torch.full((b, v), -1.0, device="cuda")
+        for r in range(b):  # the last element before the row's first 16-byte boundary
+            head[r, max((16 - (offset + r * 2 * v) % 16) % 16 // 2 - 1, 0)] = 7.0
+        tail = torch.full((b, v), -1.0, device="cuda")
+        tail[:, v - 1] = 7.0
+        x = torch.randn((b, v), generator=gen, device="cuda").to(torch.bfloat16)
+        cases = {"random": (x, None),
+                 "across cluster chunks": (_across_cluster_chunks(b, v).to(torch.bfloat16), None),
+                 "max in the scalar head": (laid(head), head.argmax(-1).int()),
+                 "max in the scalar tail": (laid(tail), tail.argmax(-1).int())}
+        print(f"{tag} greedy_sample B={b} V={v} bf16, plan {plan}; rows: "
+              f"{_chunk_layout(cases['max in the scalar head'][0], plan)}")
+        for label, (case, at) in cases.items():
             got, cluster = _cluster_of(lambda: greedy_sample(case))
             want = ref.greedy_sample_ref(case)
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             worst = max(worst, err)
-            print(f"[ssm] greedy_sample {label} B={b} V={SSM_V} bf16: plan "
-                  f"{plan_greedy_sample(b, SSM_V)}, cluster={cluster} max_abs_err={err}")
-            if err:
+            print(f"{tag} greedy_sample {label} B={b} V={v} bf16: cluster={cluster} "
+                  f"ids {got.tolist()} max_abs_err={err}")
+            if err or (at is not None and not torch.equal(got, at)):
                 raise SystemExit(f"greedy_sample disagrees with its plain version on {label} "
-                                 f"B={b} V={SSM_V}: {got.tolist()} vs {want.tolist()}")
+                                 f"B={b} V={v}: {got.tolist()} vs {want.tolist()}")
         bound = _bound_ms(x.numel() * x.element_size() + b * 4, 0.0, 1.0)
-        ms = _timed(f"greedy_sample B={b} V={SSM_V} bf16, cluster of {cluster}", {
+        ms = _timed(f"greedy_sample B={b} V={v} bf16, cluster of {cluster}", {
             "ms": lambda: greedy_sample(x), "plain_ms": lambda: ref.greedy_sample_ref(x),
             "library_ms": lambda: torch.argmax(x, dim=-1)}, *bound, smi)
         out[b] = {"ms": ms, "bound": bound, "cluster": cluster}
-    four = out[4]
-    return {"max_abs_err": worst, "cluster_ssm": four["cluster"], "ms_ssm": four["ms"]["ms"],
-            "plain_ms_ssm": four["ms"]["plain_ms"], "library_ms_ssm": four["ms"]["library_ms"],
-            "bound_ms_ssm": four["bound"][0], "ms_ssm_b1": out[1]["ms"]["ms"],
-            "library_ms_ssm_b1": out[1]["ms"]["library_ms"]}
+    four, one, sfx = out[4], out[1], tag.strip("[]")
+    return {"max_abs_err": worst, f"cluster_{sfx}": four["cluster"],
+            f"ms_{sfx}": four["ms"]["ms"], f"plain_ms_{sfx}": four["ms"]["plain_ms"],
+            f"library_ms_{sfx}": four["ms"]["library_ms"], f"bound_ms_{sfx}": four["bound"][0],
+            f"ms_{sfx}_b1": one["ms"]["ms"], f"library_ms_{sfx}_b1": one["ms"]["library_ms"]}
 
 
 def _f32_tree(tree: dict) -> dict:
@@ -1608,7 +1727,7 @@ def phase_ssm(smi: str) -> dict:
 
     t0 = time.perf_counter()
     cfg = get(SSM_ARCH)
-    greedy = _ssm_greedy_check(smi)
+    greedy = _head_greedy_check(smi, "[ssm]", SSM_V, SEED + 9)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     found = torch.cuda.memory_allocated()
@@ -1702,6 +1821,238 @@ def phase_ssm(smi: str) -> dict:
     return {"greedy_sample": launches, **greedy}
 
 
+def _flat_shapes(shapes: list) -> list:
+    """The tensor shapes in a profiler record's input shapes, a tensor
+    list's shapes one by one."""
+    out = []
+    for x in shapes:
+        if x and all(isinstance(e, int) for e in x):
+            out.append(list(x))
+        elif x and all(isinstance(e, (list, tuple)) for e in x):
+            out.extend(_flat_shapes(x))
+    return out
+
+
+def _own_windows(model, params, xk: torch.Tensor, xv: torch.Tensor) -> None:
+    """One decode step of 4 slots on one token at position 0: over four
+    windows each slot's logits are its own (pairwise different); with the
+    windows of slots 0 and 1 swapped, rows 0 and 1 swap bit for bit and
+    rows 2 and 3 stay; over zero windows the 4 rows are one row, which each
+    windowed row differs from."""
+    b = xk.shape[1]
+    tok = torch.full((b, 1), 7, dtype=torch.int32, device="cuda")
+
+    def logits(wk: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
+        cache = model.init_cache(b, 4)
+        cache["xk"].copy_(wk)
+        cache["xv"].copy_(wv)
+        return model.decode_step(params, cache, tok, 0)[0][:, 0].float()
+
+    swap = [1, 0, *range(2, b)]
+    own, swapped = logits(xk, xv), logits(xk[:, swap], xv[:, swap])
+    zero = logits(torch.zeros_like(xk), torch.zeros_like(xv))
+    moved = [float((own[i] - zero[0]).abs().max()) for i in range(b)]
+    print(f"[encdec] one decode step over 4 windows against zero windows: max |logit change| a "
+          f"slot {[round(x, 6) for x in moved]}; swapping two slots' windows swaps their logits")
+    if not (torch.equal(swapped, own[swap]) and all(torch.equal(z, zero[0]) for z in zero)
+            and min(moved) > 0 and all(not torch.equal(own[i], own[j])
+                                       for i in range(b) for j in range(i + 1, b))):
+        raise SystemExit("a slot's logits do not follow its own window")
+
+
+def phase_encdec(smi: str) -> dict:
+    """The encoder-decoder family: whisper-medium whole (24 encoder and 24
+    decoder layers at its published widths), seeded weights. greedy_sample
+    at the head's shapes; the encoder over 4 seeded 30 s windows, timed
+    beside its bound; the cross K/V of each window; forward against
+    teacher-forced decode; a step whose logits follow each slot's window;
+    one masked eager fused step under ``set_sync_debug_mode("error")``, the
+    masked row's K/V and every cross K/V byte bit-identical after it, at
+    their addresses; the serving engine fused and host-sampled on 4
+    requests and a copy of each, every request carrying its window, each
+    copy in a slot whose last window was another's, with greedy_sample
+    counted from 0 just before the fused run and read just after; one eager
+    fused decode step profiled by operator and input shape beside its
+    bound, with no copy of the cross K/V. Frees the model at the end, and
+    checks that it is gone."""
+    from repro_torch.configs import get
+    from repro_torch.dispatch.executor import flatten_with_path
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = get(ENCDEC_ARCH)
+    greedy = _head_greedy_check(smi, "[encdec]", ENCDEC_V, SEED + 11)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
+    ti = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    leaves = flatten_with_path(params)
+    n = sum(p.numel() for _, p in leaves)
+    nbytes = {}  # by top-level name: embed, enc_layers, enc_final_norm, dec_layers, final_norm
+    for path, p in leaves:
+        top = path.split("'")[1]
+        nbytes[top] = nbytes.get(top, 0) + p.numel() * p.element_size()
+    print(f"[encdec] {ENCDEC_ARCH} whole: {cfg.n_encoder_layers} encoder and {cfg.n_layers} "
+          f"decoder layers; widths as published: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim_} (MHA), d_ff {cfg.d_ff} (GELU), vocab {cfg.vocab_size} (tied), "
+          f"{cfg.encoder_seq_len} frames; {n} parameters in the tree, "
+          f"{sum(nbytes.values()) / 1e9:.3f} GB (encoder {nbytes['enc_layers'] / 1e9:.3f}, "
+          f"decoder {nbytes['dec_layers'] / 1e9:.3f}, embedding {nbytes['embed'] / 1e9:.3f}); "
+          f"seeded on the card in {time.perf_counter() - ti:.2f} s, max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B")
+    if n != 758_002_688 or (cfg.n_layers, cfg.n_encoder_layers, cfg.d_model, cfg.d_ff,
+                            cfg.vocab_size) != (24, 24, 1024, 4096, ENCDEC_V):
+        raise SystemExit(f"{ENCDEC_ARCH} is not at its published widths and depth")
+
+    # the encoder over 4 seeded 30 s windows, one a slot
+    b, t, d = ENCDEC_SLOTS, cfg.encoder_seq_len, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    frames = torch.randn((b, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    model.encode(params, frames)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    enc_ms = _events_ms(lambda: model.encode(params, frames), 3)
+    enc_peak = torch.cuda.max_memory_allocated()
+    enc = model.encode(params, frames)
+    enc_prof = _profiled(lambda: model.encode(params, frames), 1, top=6)
+    enc_ops = cfg.n_encoder_layers * (8 * b * t * d * d + 4 * b * t * d * cfg.d_ff
+                                      + 4 * b * t * t * d)
+    enc_bound = _bound_ms(nbytes["enc_layers"] + nbytes["enc_final_norm"]
+                          + 2 * frames.numel() * frames.element_size(), enc_ops, BF16_FLOPS)
+    xk, xv = model.cross_kv(params, enc)
+    finite = bool(torch.isfinite(enc).all() and torch.isfinite(xk).all()
+                  and torch.isfinite(xv).all())
+    print(f"[encdec] encoder B={b} T={t}: {enc_ms:.4f} ms a pass (CUDA events, mean of 3) against "
+          f"a bound of {enc_bound[0]:.4f} ms ({enc_bound[1]}: {enc_ops / 1e12:.4f} TFLOP at "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s) = {enc_ms / enc_bound[0]:.2f}x; max_memory_allocated "
+          f"{enc_peak} B; cross K/V {tuple(xk.shape)} x 2 = "
+          f"{2 * xk.numel() * xk.element_size()} B; finite={finite} ({smi})")
+    print(f"[encdec] encoder profile (torch.profiler, one pass): {enc_prof['ops']:.0f} device "
+          f"ops, busy {enc_prof['busy_ms']:.4f} ms; most device time: {_top(enc_prof)}")
+    if not finite or enc.shape != (b, t, d):
+        raise SystemExit("the encoder or its cross K/V gave non-finite values or another shape")
+    del enc
+
+    def write_cross(cache: dict) -> None:
+        cache["xk"].copy_(xk[:, :2])
+        cache["xv"].copy_(xv[:, :2])
+
+    phase_numerics(model, params, "[encdec]", {"frontend_embeds": frames[:2]}, write_cross)
+    _own_windows(model, params, xk, xv)
+
+    # one masked fused step: slot 3 keeps its K/V rows, every cross K/V byte stays
+    cache = model.init_cache(b, ENCDEC_MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen, device="cuda"))
+    cache["xk"].copy_(xk)
+    cache["xv"].copy_(xv)
+    before = {k: v.clone() for k, v in cache.items()}
+    addresses = {k: v.data_ptr() for k, v in cache.items()}
+    _masked_fused_step(model, params, cache)
+    for k, v in cache.items():
+        if v.data_ptr() != addresses[k] or not torch.equal(v[:, 3], before[k][:, 3]):
+            raise SystemExit(f"the masked fused step moved {k!r} or changed its masked row")
+    if not (torch.equal(cache["xk"], before["xk"]) and torch.equal(cache["xv"], before["xv"])):
+        raise SystemExit("the masked fused step changed the cross K/V")
+    if torch.equal(cache["k"][:, 0], before["k"][:, 0]):
+        raise SystemExit("the masked fused step left a live row's K unchanged")
+    del before
+    print(f"[encdec] one masked fused decode step under set_sync_debug_mode('error'): no "
+          f"read-back; the masked row's k and v and all {2 * xk.numel() * xk.element_size()} B "
+          f"of xk and xv bit-identical, every leaf at its address; the live rows' k changed")
+
+    # the serving engine, fused then host-sampled: 4 requests, then a copy of
+    # each (same prompt, same window) in a slot whose last window was another's
+    prompts = _requests(cfg, ENCDEC_REQUESTS // 2, ENCDEC_PROMPT)
+    m = len(prompts)
+    owner = {uid: uid for uid in range(m)} | {m + k: (k + 1) % m for k in range(m)}
+    reqs = prompts + [(uid, prompts[owner[uid]][1]) for uid in range(m, 2 * m)]
+    windows = {uid: (xk[:, o], xv[:, o]) for uid, o in owner.items()}
+    run = dict(tag="[encdec]", max_len=ENCDEC_MAX_LEN, windows=windows)
+    _serve(model, params, reqs[:1], "fused", max_new=2, **run)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    greedy_sample.launches = 0
+    fused = _serve(model, params, reqs, "fused", max_new=ENCDEC_NEW, **run)
+    launches = greedy_sample.launches
+    print(f"[encdec] greedy_sample launches in the fused run: {launches}; "
+          f"{fused['decode_launches']} fused decode launches, {fused['prefill_launches']} "
+          f"prefill launches of 8 steps; {ENCDEC_SLOTS} slots x {ENCDEC_MAX_LEN}; "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    if launches == 0 or launches != fused["decode_launches"]:
+        raise SystemExit("the encdec engine did not launch greedy_sample once per fused decode "
+                         "launch")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != ENCDEC_NEW:
+            raise SystemExit(f"encdec request {uid} finished with "
+                             f"{len(fused['streams'][uid])} tokens")
+    rows: dict = {}
+    host = _serve(model, params, reqs, "host", max_new=ENCDEC_NEW, rows=rows, **run)
+    if host["streams"] != fused["streams"]:
+        raise SystemExit("encdec fused and host sampling gave different token streams")
+    slot = {uid: r[0][0] for uid, r in rows.items()}
+    for uid in range(m, 2 * m):
+        o = owner[uid]
+        if slot[uid] == slot[o] or not torch.equal(torch.stack([x for _, x in rows[uid]]),
+                                                   torch.stack([x for _, x in rows[o]])):
+            raise SystemExit(f"encdec request {uid} in slot {slot[uid]} did not give the logits "
+                             f"of request {o}, whose window it carries, in slot {slot[o]}")
+    print(f"[encdec] fused and host token streams are bit-identical; distinct ids a stream "
+          f"{[len(set(fused['streams'][uid])) for uid, _ in reqs]}; first stream "
+          f"{fused['streams'][0][:8]}; each copy's {ENCDEC_NEW} decode logit rows equal its "
+          f"original's bit for bit, the copy in a slot whose last window was another's "
+          f"(request: slot {slot}; the host run copies each live row a step to compare them)")
+
+    # one eager fused decode step, profiled by operator and input shape, beside
+    # the bytes it must read
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    no_override = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    at = ENCDEC_MAX_LEN // 2
+    pos = torch.full((b,), at, dtype=torch.int32, device="cuda")
+
+    def step() -> None:
+        model.decode_and_sample(params, cache, ones, no_override, ~live, pos, live)
+
+    step()
+    step_ms = _events_ms(step, 5)
+    prof = _profiled(lambda: [step() for _ in range(3)], 3, top=6, shapes=True)
+    window = t * cfg.n_kv_heads * cfg.head_dim_  # elements of one slot's window a layer
+    readers = {key for key, shapes, _, _ in prof["by_shape"] for shape in _flat_shapes(shapes)
+               if t in shape and int(np.prod(shape)) >= window}
+    ca = params["dec_layers"]["cross_attn"]
+    cross_w = sum(ca[k].numel() * ca[k].element_size() for k in ("wk", "wv"))
+    kv_bytes = 2 * cfg.n_layers * b * (at + 1) * cfg.n_kv_heads * cfg.head_dim_ * 2
+    x_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("xk", "xv"))
+    weights = nbytes["dec_layers"] - cross_w + nbytes["embed"] + nbytes["final_norm"]
+    step_bytes = weights + x_bytes + kv_bytes
+    bound = _bound_ms(step_bytes, 2.0 * b * weights / 2, BF16_FLOPS)  # 2 ops a weight a row
+    print(f"[encdec] one eager fused decode step B={b} at position {at} of "
+          f"{ENCDEC_MAX_LEN}: {prof['ops']:.1f} device ops, busy {prof['busy_ms']:.4f} ms "
+          f"(torch.profiler, mean of 3), {step_ms:.4f} ms by CUDA events around 5 eagerly "
+          f"issued steps; bound {step_bytes} B (decoder without the cross wk/wv "
+          f"{nbytes['dec_layers'] - cross_w} B, tied head {nbytes['embed']} B, xk/xv {x_bytes} "
+          f"B, the k/v rows up to position {at} {kv_bytes} B) = {bound[0]:.4f} ms "
+          f"({bound[1]}); busy = {prof['busy_ms'] / bound[0]:.2f}x it ({smi})")
+    print(f"[encdec] decode step profile, most device time a step: {_top(prof)}")
+    print("[encdec] decode step profile by operator and input shapes, most device time a step: "
+          + "; ".join(f"{key} {shapes} {ms:.4f} ms x{calls:g}"
+                      for key, shapes, ms, calls in prof["by_shape"][:8]))
+    print(f"[encdec] operators that read a window-sized tensor in the step: {sorted(readers)}")
+    if readers != {"aten::bmm"}:
+        raise SystemExit(f"the decode step copies xk/xv, or reads them through {readers}, not "
+                         f"aten::bmm alone")
+    del model, params, leaves, cache, xk, xv, frames, ca, windows, run, rows
+    _free_model("[encdec]", found)
+    print(f"[encdec] phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": launches, **greedy}
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -1734,6 +2085,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = phase_moe(smi)
     ssm = phase_ssm(smi)
+    encdec = phase_encdec(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
@@ -1742,6 +2094,9 @@ def main() -> None:
             record["launches_ssm"] = ssm.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], ssm.pop("max_abs_err"))
             record.update(ssm)  # the RWKV head's shape: times, bound and cluster
+            record["launches_encdec"] = encdec.pop("greedy_sample")
+            record["max_abs_err"] = max(record["max_abs_err"], encdec.pop("max_abs_err"))
+            record.update(encdec)  # the whisper head's shape: times, bound and cluster
         if record["name"] == "top_k":  # the MoE router's launches: this path's kernel now
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")

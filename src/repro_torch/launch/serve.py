@@ -28,7 +28,10 @@ of the last position's logits by ``kernels.ops.sample_op``, the hand-written
 ``greedy_sample`` on the card. A run that would write a cache position past
 ``cache_len`` raises before its first launch; a model whose cache has no
 position axis (``--arch rwkv6-7b``, a recurrent state) runs any number of
-steps, as the reference's loop does.
+steps, as the reference's loop does. The encoder-decoder family
+(``--arch whisper-medium``) is refused before any weights are drawn, with
+the reference driver's message: its decode needs an encoded window in the
+cache, which this loop does not make.
 """
 
 from __future__ import annotations
@@ -233,6 +236,9 @@ def main(argv=None) -> None:
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family in ("vlm", "encdec"):  # the reference's refusal, before any weights
+        raise SystemExit("serve driver targets decoder-only archs; "
+                         "use examples/serve_decode.py for stubs")
     model = Model(cfg, device=args.device)
     run = serve(model, model.init(0), batch=args.batch, steps=args.steps,
                 cache_len=args.cache_len, mode=args.mode, fuse=args.fuse)

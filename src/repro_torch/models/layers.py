@@ -1,9 +1,10 @@
-"""Neural building blocks of the dense, MoE and RWKV-6 families, as plain
-functions on tensors.
+"""Neural building blocks of the dense, MoE, RWKV-6 and encoder-decoder
+families, as plain functions on tensors.
 
-The counterpart of ``repro/models/layers.py`` for the layers a dense or MoE
-GQA transformer runs: norms, rotary embedding, attention with a per-slot KV
-cache, the SwiGLU MLP, and the top-k token-choice MoE MLP with its
+The counterpart of ``repro/models/layers.py`` for the layers these
+families run: norms, rotary embedding, attention (causal or not, with or
+without RoPE, self- or cross-attention, with a per-slot KV cache), the
+SwiGLU and GELU MLPs, and the top-k token-choice MoE MLP with its
 sort-based, capacity-limited dispatch; and for RWKV-6 (Finch): the time mix
 with its matrix-valued recurrent state and data-dependent decay, and the
 squared-ReLU channel mix. Parameters are plain dicts of tensors with the
@@ -61,15 +62,18 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return ((x32 - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
-    """Rotary embedding. x: (B, S, H, D); positions: (B, S) or (S,)."""
-    d = x.shape[-1]
+def inv_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """theta^(-i/d) for even i < d, in f32: the frequencies of rotary and
+    sinusoidal position embeddings, as the reference computes them."""
     # log(theta) in f32 as the reference takes it, on the host: a tensor made
     # on the card here would copy and synchronise on every call
     log_theta = float(np.log(np.float32(theta)))
-    freqs = torch.exp(
-        -log_theta * torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
-    )  # (D/2,)
+    return torch.exp(-log_theta * torch.arange(0, d, 2, dtype=torch.float32, device=device) / d)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, D); positions: (B, S) or (S,)."""
+    freqs = inv_freqs(x.shape[-1], theta, x.device)  # (D/2,)
     angles = positions[..., None].float() * freqs  # (B, S, D/2)
     cos = torch.cos(angles)[..., None, :]  # (B, S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
@@ -79,7 +83,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA, optional QKV bias, optional per-slot KV cache)
+# Attention (GQA, optional QKV bias, optional RoPE, self- or cross-attention,
+# optional per-slot KV cache)
 # --------------------------------------------------------------------------
 
 
@@ -118,6 +123,26 @@ def gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, n * g, -1)
 
 
+def cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of q (B, S, Hq, D) over every row of k and v
+    (B, T, Hkv, D): :func:`gqa_scores`, the f32 softmax and
+    :func:`gqa_combine`, rounded as they round, with k and v read where they
+    lie. ``einsum`` would copy each head-major first, since B and Hkv of a
+    (B, T, Hkv, D) tensor do not merge into one batch axis; one ``bmm`` a
+    batch row takes that row's heads as a strided batch (D apart, rows
+    Hkv·D apart), which cuBLAS reads in place. The decoder's
+    cross-attention over ``xk``/``xv`` runs here: whisper-medium's are
+    12.3 MB each a layer at B = 4."""
+    b, s, hq, d = q.shape
+    n = k.shape[2]
+    g = hq // n
+    qh = q.reshape(b, s, n, g, d).permute(0, 2, 3, 1, 4).reshape(b, n, g * s, d)
+    scores = torch.stack([torch.bmm(qh[i], k[i].permute(1, 2, 0)) for i in range(b)])
+    probs = torch.softmax((scores / math.sqrt(d)).float(), dim=-1).to(COMPUTE_DTYPE)
+    out = torch.stack([torch.bmm(probs[i], v[i].permute(1, 0, 2)) for i in range(b)])
+    return out.reshape(b, n, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
+
+
 def masked_cache_write(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor,
                        update_mask: torch.Tensor | None) -> None:
     """Write one row per slot into ``buf`` (B, T, H, D), in place, at that
@@ -150,35 +175,45 @@ def attention_apply(
     params: dict,
     cfg: ModelConfig,
     x: torch.Tensor,
-    positions: torch.Tensor,
+    positions: torch.Tensor | None,
     *,
+    causal: bool = True,
+    use_rope: bool = True,
+    kv: torch.Tensor | None = None,
     cache: dict | None = None,
     cache_pos: torch.Tensor | None = None,
     update_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Causal self-attention. Without ``cache``: the full sequence, as the
-    training forward runs it. With ``cache`` ({"k","v": (B, S_max, Hkv, D)},
-    updated in place) and ``cache_pos`` ((B,) per-slot positions): one new
-    token per slot, written at its position (only where ``update_mask``
-    selects), attending to the cache rows up to its position. Every slot,
-    a masked-out one too, attends with its own new K/V at its position, as
+    """Attention of ``x`` (B, S, d). Without ``cache``: the full sequence,
+    as the training forward runs it, causal unless ``causal=False``. With
+    ``kv`` ((B, T, d), the encoder's output), cross-attention: K and V come
+    from ``kv``, unrotated, and no mask applies. ``use_rope=False`` rotates
+    neither Q nor K (``positions`` may then be None).
+
+    With ``cache`` ({"k","v": (B, S_max, Hkv, D)}, updated in place) and
+    ``cache_pos`` ((B,) per-slot positions): one new token per slot,
+    written at its position (only where ``update_mask`` selects),
+    attending to the cache rows up to its position. Every slot, a
+    masked-out one too, attends with its own new K/V at its position, as
     the reference's do: under MoE the rows meet in one capacity-limited
     expert buffer, so a masked row's numbers reach the live rows."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    src = x if kv is None else kv
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = src @ params["wk"]
+    v = src @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = _split_heads(q, hq)
     k = _split_heads(k, hkv)
     v = _split_heads(v, hkv)
 
-    q = rope(q, positions, cfg.rope_theta)
-    if cache_pos is None:
-        k = rope(k, positions, cfg.rope_theta)
-    else:  # continuous batching: each row at its own position
-        k = rope(k, cache_pos[:, None].expand(k.shape[:2]), cfg.rope_theta)
+    if use_rope and kv is None:
+        q = rope(q, positions, cfg.rope_theta)
+        if cache_pos is None:
+            k = rope(k, positions, cfg.rope_theta)
+        else:  # continuous batching: each row at its own position
+            k = rope(k, cache_pos[:, None].expand(k.shape[:2]), cfg.rope_theta)
 
     b, s = x.shape[:2]
     if cache is not None:
@@ -200,7 +235,7 @@ def attention_apply(
         # mask out cache slots past each slot's current position
         valid = cols <= cache_pos[:, None]  # (B, T)
         scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
-    else:
+    elif causal and kv is None:
         mask = torch.ones((s, t), dtype=torch.bool, device=x.device).tril()
         scores = torch.where(mask[None, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
@@ -209,12 +244,17 @@ def attention_apply(
 
 
 # --------------------------------------------------------------------------
-# SwiGLU MLP
+# SwiGLU and GELU MLPs
 # --------------------------------------------------------------------------
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
+    """SwiGLU's ``{"wi", "wg", "wo"}``, or with ``cfg.mlp_kind == "gelu"``
+    the two-matrix ``{"wi", "wo"}`` (whisper's)."""
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {"wi": _dense_init(gen, (d, ff), stack=stack),
+                "wo": _dense_init(gen, (ff, d), stack=stack)}
     return {
         "wi": _dense_init(gen, (d, ff), stack=stack),
         "wg": _dense_init(gen, (d, ff), stack=stack),
@@ -223,7 +263,24 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    if "wg" not in params:  # GELU (whisper's two-matrix MLP)
+        return _gelu(x @ params["wi"]) @ params["wo"]
     return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+
+
+# bf16 values of the tanh approximation's constants, as ``jax.nn.gelu`` casts
+# them to the activations' dtype
+_GELU_CUBE = float(torch.tensor(0.044715).to(COMPUTE_DTYPE))
+_GELU_SCALE = float(torch.tensor(math.sqrt(2 / math.pi)).to(COMPUTE_DTYPE))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``) as XLA computes it in bf16:
+    each op of x · 0.5 · (1 + tanh(c · (x + 0.044715 x³))) rounded to bf16,
+    its constants too, where ``F.gelu`` rounds once and gives another bf16
+    value for about four inputs in ten."""
+    inner = _GELU_SCALE * (x + _GELU_CUBE * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 # --------------------------------------------------------------------------

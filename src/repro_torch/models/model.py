@@ -1,23 +1,27 @@
-"""The model facade of the port: the dense, MoE and RWKV-6 families, for
-serving.
+"""The model facade of the port: the dense, MoE, RWKV-6 and
+encoder-decoder families, for serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
-``family`` ``"dense"`` and ``"moe"`` (SwiGLU; the MoE MLP in every layer in
-place of the dense one) and ``"ssm"`` (RWKV-6: a time mix and a channel mix
-a layer, LayerNorm with bias): ``init`` draws seeded weights like the
-reference's ``Model.init`` (same tree, shapes, scales and dtypes; other
-random numbers), ``forward`` is the full-sequence path, and ``init_cache``
-/ ``decode_step`` / ``decode_and_sample`` / ``prefill_chunk`` are the
-serving path over a per-slot KV cache, or for ``ssm`` a recurrent state
-with no position axis.
+``family`` ``"dense"`` and ``"moe"`` (the MoE MLP in every layer in place
+of the dense one), ``"ssm"`` (RWKV-6: a time mix and a channel mix a layer,
+LayerNorm with bias) and ``"encdec"`` (whisper: a non-causal encoder over
+audio frames and a decoder with self- and cross-attention, sinusoidal
+positions, the GELU MLP, LayerNorm with bias): ``init`` draws seeded
+weights like the reference's ``Model.init`` (same tree, shapes, scales and
+dtypes; other random numbers), ``forward`` is the full-sequence path, and
+``init_cache`` / ``decode_step`` / ``decode_and_sample`` / ``prefill_chunk``
+are the serving path over a per-slot KV cache, or for ``ssm`` a recurrent
+state with no position axis.
 
 Layouts follow the reference so tests compare like with like: parameters
 are stacked per layer under a leading ``n_layers`` axis (the reference's
 ``lax.scan`` becomes a Python loop over layers), and the cache is
 ``(n_layers, B, max_len, Hkv, D)`` (``ssm``: ``s`` (n_layers, B, H, K, V)
-f32, ``shift_tm`` and ``shift_cm`` (n_layers, B, d)). Where the reference
-donates the cache and gets a new one back, the port updates every leaf in
-place, at a fixed address, and returns the same dict.
+f32, ``shift_tm`` and ``shift_cm`` (n_layers, B, d); ``encdec`` adds the
+cross-attention's ``xk``/``xv`` (n_layers, B, encoder_seq_len, Hkv, D),
+which a decode step reads and never writes). Where the reference donates
+the cache and gets a new one back, the port updates every leaf in place,
+at a fixed address, and returns the same dict.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ def _norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return L.rms_norm(x, params["w"], eps)
 
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal position embeddings (``positions``' shape + (d,)): angles
+    in f32, sin and cos concatenated, cast to bf16, as the reference makes
+    them."""
+    ang = positions[..., None].float() * L.inv_freqs(d, 10_000.0, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(L.COMPUTE_DTYPE)
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -43,11 +55,11 @@ def _layer(tree: dict, i: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family not in ("dense", "moe", "ssm") or cfg.mlp_kind != "swiglu":
+        if cfg.family not in ("dense", "moe", "ssm", "encdec"):
             raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.mlp_kind} MLP) is not ported; the port "
-                f"runs dense and moe with SwiGLU and ssm (RWKV-6), and hybrid, encdec "
-                f"and vlm are queued in ROADMAP.md, Queue 1, \"The other families\"")
+                f"family {cfg.family!r} is not ported; the port runs dense, moe, ssm "
+                f"(RWKV-6) and encdec (whisper), and hybrid and vlm are queued in "
+                f"ROADMAP.md, Queue 1, \"The other families\"")
         if cfg.cache_quant != "none" or cfg.attn_chunk:
             raise NotImplementedError(
                 "int8 KV and chunked attention are not ported: ROADMAP.md, "
@@ -67,15 +79,18 @@ class Model:
     def init(self, seed: int) -> dict:
         """Seeded weights on ``self.device``, in the reference's tree: the
         MoE family has ``layers.moe`` in place of ``layers.mlp``; ``ssm``
-        has ``layers.{tm_norm, tm, cm_norm, cm}``, its norms (and the final
-        one) LayerNorms with a bias ``b``."""
+        has ``layers.{tm_norm, tm, cm_norm, cm}``; ``encdec`` has
+        ``enc_layers.{ln1, attn, ln2, mlp}``, ``enc_final_norm`` and
+        ``dec_layers.{ln1, self_attn, ln2, cross_attn, ln3, mlp}``. The
+        norms of ``ssm`` and ``encdec`` (their final ones too) are
+        LayerNorms with a bias ``b``."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n, d = cfg.n_layers, cfg.d_model
 
         def norm(*shape):
             w = {"w": torch.ones(shape, dtype=torch.float32, device=self.device)}
-            if cfg.family == "ssm":  # LayerNorm with a bias
+            if cfg.family in ("ssm", "encdec"):  # LayerNorm with a bias
                 w["b"] = torch.zeros(shape, dtype=torch.float32, device=self.device)
             return w
 
@@ -83,7 +98,24 @@ class Model:
             "embed": L._dense_init(gen, (cfg.vocab_size, d)),
             "final_norm": norm(d),
         }
-        if cfg.family == "ssm":
+        if cfg.family == "encdec":
+            ne = cfg.n_encoder_layers
+            params["enc_layers"] = {
+                "ln1": norm(ne, d),
+                "attn": L.attention_init(gen, cfg, stack=ne),
+                "ln2": norm(ne, d),
+                "mlp": L.mlp_init(gen, cfg, stack=ne),
+            }
+            params["enc_final_norm"] = norm(d)
+            params["dec_layers"] = {
+                "ln1": norm(n, d),
+                "self_attn": L.attention_init(gen, cfg, stack=n),
+                "ln2": norm(n, d),
+                "cross_attn": L.attention_init(gen, cfg, stack=n),
+                "ln3": norm(n, d),
+                "mlp": L.mlp_init(gen, cfg, stack=n),
+            }
+        elif cfg.family == "ssm":
             params["layers"] = {
                 "tm_norm": norm(n, d),
                 "tm": L.rwkv_init(gen, cfg, stack=n),
@@ -113,8 +145,10 @@ class Model:
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits, moe_aux_loss): the sum of the layers' aux losses,
-        zero for the dense and ssm families."""
+        zero for the dense, ssm and encdec families."""
         cfg = self.cfg
+        if cfg.family == "encdec":
+            return self._forward_encdec(params, batch)
         x = params["embed"][batch["tokens"]]  # (B, S, d)
         if cfg.family == "ssm":
             x = self._rwkv_trunk(params["layers"], x)
@@ -150,6 +184,58 @@ class Model:
             x = x + L.rwkv_channel_mix(lp["cm"], h, shifted)
         return x
 
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder half of ``encdec``: (B, T, d) frame embeddings (the
+        audio front end's output, cast to bf16) plus sinusoidal positions,
+        through the non-causal, unrotated encoder layers and
+        ``enc_final_norm``; returns (B, T, d) bf16."""
+        cfg = self.cfg
+        x = frames.to(L.COMPUTE_DTYPE)
+        x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
+        for i in range(cfg.n_encoder_layers):
+            lp = _layer(params["enc_layers"], i)
+            x = x + L.attention_apply(lp["attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps), None,
+                                      causal=False, use_rope=False)
+            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln2"], x, cfg.norm_eps))
+        return _norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+    def cross_kv(self, params: dict, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The decoder's cross-attention K and V of the encoder output
+        ``enc`` (B, T, d): each layer's ``cross_attn.wk``/``wv`` applied to
+        it, as the reference's ``forward`` computes them inside
+        ``attention_apply(..., kv=enc)``. Returns (xk, xv), each
+        (n_layers, B, T, Hkv, D) bf16: window ``i``'s ``(xk[:, i], xv[:, i])``
+        is what a request carries (``serving.Request.cross_kv``) and the
+        engine writes into its slot (``init_cache`` gives zeros, and the
+        reference has no function that fills them)."""
+        cfg = self.cfg
+        ca = params["dec_layers"]["cross_attn"]
+
+        def heads(w: torch.Tensor) -> torch.Tensor:
+            return torch.stack([L._split_heads(enc @ w[i], cfg.n_kv_heads)
+                                for i in range(cfg.n_layers)])
+
+        return heads(ca["wk"]), heads(ca["wv"])
+
+    def _forward_encdec(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """``batch``: ``frontend_embeds`` (B, T, d) and ``tokens`` (B, S). The
+        encoder, then the decoder: causal self-attention and
+        cross-attention to the encoder output, both unrotated, over token
+        embeddings plus sinusoidal positions."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frontend_embeds"])
+        x = params["embed"][batch["tokens"]]
+        x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
+        for i in range(cfg.n_layers):
+            lp = _layer(params["dec_layers"], i)
+            x = x + L.attention_apply(lp["self_attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps),
+                                      None, use_rope=False)
+            x = x + L.attention_apply(lp["cross_attn"], cfg, _norm(lp["ln2"], x, cfg.norm_eps),
+                                      None, causal=False, use_rope=False, kv=enc)
+            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
+        x = _norm(params["final_norm"], x, cfg.norm_eps)
+        return x @ self._head(params), torch.zeros((), dtype=torch.float32, device=x.device)
+
     def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer's MLP on ``x`` after its norm: (output, MoE aux loss or None)."""
         y = _norm(lp["mlp_norm"], x, self.cfg.norm_eps)
@@ -161,7 +247,11 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """Zeros: a KV cache of ``max_len`` rows a slot, or for ``ssm`` the
-        recurrent state, whose size does not depend on ``max_len``."""
+        recurrent state, whose size does not depend on ``max_len``. For
+        ``encdec`` also the cross-attention's ``xk``/``xv`` of
+        ``encoder_seq_len`` rows a slot, zeros as the reference's are: the
+        serving engine writes each request's window into its slot
+        (:meth:`cross_kv`)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             n, hd = cfg.n_layers, cfg.rwkv_head_dim
@@ -173,11 +263,12 @@ class Model:
                 "shift_cm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
                                         device=self.device),
             }
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {
-            "k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device),
-            "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device),
-        }
+        rows = {"k": max_len, "v": max_len}
+        if cfg.family == "encdec":
+            rows.update(xk=cfg.encoder_seq_len, xv=cfg.encoder_seq_len)
+        return {key: torch.zeros((cfg.n_layers, batch_size, t, cfg.n_kv_heads, cfg.head_dim_),
+                                 dtype=L.COMPUTE_DTYPE, device=self.device)
+                for key, t in rows.items()}
 
     def decode_step(
         self, params: dict, cache: dict, tokens: torch.Tensor, pos,
@@ -210,7 +301,14 @@ class Model:
         freed slot keeps its last request's state; the reference reads that
         state on, ROADMAP.md Queue 3). Each layer's state leaves then take
         the new rows where ``update_mask`` selects (:meth:`_masked_cache`),
-        so a masked row keeps its bits at any position."""
+        so a masked row keeps its bits at any position.
+
+        ``encdec`` adds sinusoidal positions at each slot's position, runs
+        unrotated self-attention on ``k``/``v`` as above and
+        cross-attention over all of ``xk``/``xv``, which it reads in place
+        (``layers.cross_attend``) and never writes or copies (the reference
+        passes them through; a copy would move more bytes than the rest of
+        the step)."""
         x = params["embed"][tokens]  # (B, 1, d)
         if self.cfg.family == "ssm":
             fresh = torch.as_tensor(pos, device=x.device) == 0
@@ -220,7 +318,11 @@ class Model:
             pos = torch.as_tensor(pos, device=x.device)
             if pos.dim() == 0:
                 pos = pos.expand(b)
-            x = self._uniform_decode(params["layers"], cache, x, pos, update_mask)
+            if self.cfg.family == "encdec":
+                x = x + _sinusoidal(pos[:, None], self.cfg.d_model)
+                x = self._encdec_decode(params["dec_layers"], cache, x, pos, update_mask)
+            else:
+                x = self._uniform_decode(params["layers"], cache, x, pos, update_mask)
         x = _norm(params["final_norm"], x, self.cfg.norm_eps)
         return x @ self._head(params), cache
 
@@ -289,6 +391,24 @@ class Model:
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions,
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)
             x = x + self._mlp(lp, x)[0]
+        return x
+
+    def _encdec_decode(self, trunk: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
+                       update_mask: torch.Tensor | None) -> torch.Tensor:
+        cfg = self.cfg
+        b = x.shape[0]
+        for i in range(cfg.n_layers):
+            lp = _layer(trunk, i)
+            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}  # views
+            x = x + L.attention_apply(
+                lp["self_attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps), None, use_rope=False,
+                cache=layer_cache, cache_pos=pos, update_mask=update_mask)
+            # cross-attention against the slot's encoder K/V, read in place
+            h = _norm(lp["ln2"], x, cfg.norm_eps)
+            q = L._split_heads(h @ lp["cross_attn"]["wq"], cfg.n_heads)
+            o = L.cross_attend(q, cache["xk"][i], cache["xv"][i])
+            x = x + o.reshape(b, 1, -1) @ lp["cross_attn"]["wo"]
+            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
         return x
 
     def _rwkv_decode(self, trunk: dict, cache: dict, x: torch.Tensor, fresh: torch.Tensor,

@@ -18,6 +18,15 @@ at once.
   as a separate op on the device, copying back only the ids (the A/B
   baseline, with bit-identical token streams).
 
+* **Encoder-decoder windows**: a request to an ``encdec`` model carries its
+  window's cross-attention K/V (``Request.cross_kv``, from
+  :meth:`~repro_torch.models.model.Model.cross_kv`). Admission writes it into
+  the slot's ``xk``/``xv`` rows, or zeros (``init_cache``'s) when the request
+  carries none, by a device-side copy with no read-back before the slot's
+  first launch, so a reused slot never reads its last occupant's window.
+  The reference's engine has no such field: its caller writes ``xk``/``xv``
+  once, and a request in a freed slot reads the window left there.
+
 * **Batched prefill**: admission runs the prompt through
   :meth:`~repro_torch.models.model.Model.prefill_chunk` — ``ceil(p/chunk)``
   masked launches instead of p full-batch steps, each advancing *only* the
@@ -50,6 +59,9 @@ class Request:
     max_new_tokens: int
     generated: list[int] = field(default_factory=list)
     done: bool = False
+    # encdec only: the window's (xk, xv), each (n_layers, encoder_seq_len,
+    # Hkv, D), which admission writes into the slot (zeros when None)
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
 
 
 class ServingEngine:
@@ -179,6 +191,14 @@ class ServingEngine:
                 f"request {req.uid}: prompt of {len(req.prompt)} tokens "
                 f"needs max_len > {len(req.prompt)} (engine max_len="
                 f"{self.max_len}) — it would overrun the KV cache")
+        if req.cross_kv is not None:
+            if "xk" not in self.cache:
+                raise ValueError(f"request {req.uid}: cross_kv given, but a "
+                                 f"{self.model.cfg.family} model has no cross-attention")
+            want = tuple(self.cache["xk"][:, 0].shape)
+            if any(tuple(t.shape) != want for t in req.cross_kv):
+                raise ValueError(f"request {req.uid}: cross_kv of shapes "
+                                 f"{[tuple(t.shape) for t in req.cross_kv]}, not {want}")
         self.queue.append(req)
 
     @property
@@ -192,6 +212,8 @@ class ServingEngine:
             req = self.queue.popleft()
             self.slot_req[slot] = req
             self.positions[slot] = 0
+            if "xk" in self.cache:  # encdec: the slot attends to this window
+                self._write_window(slot, req.cross_kv)
             # chunked prefill: all prompt tokens but the last stream through
             # masked launches that advance only this slot; launches stay
             # staged in the executor's ring (no sync)
@@ -200,6 +222,16 @@ class ServingEngine:
                 self._prefill_launch(slot, ptoks[start:start + self.prefill_chunk])
             # the prompt's last token seeds the first decode step
             self._set_token(slot, req.prompt[-1])
+
+    def _write_window(self, slot: int, cross_kv) -> None:
+        """The slot's ``xk``/``xv`` rows take ``cross_kv``, or zeros: copies
+        on the device, ordered after the launches already issued (the last
+        occupant's included) and before the slot's first."""
+        for leaf, rows in zip(("xk", "xv"), cross_kv or (None, None)):
+            if rows is None:
+                self.cache[leaf][:, slot].zero_()
+            else:
+                self.cache[leaf][:, slot].copy_(rows, non_blocking=True)
 
     def _prefill_launch(self, slot: int, chunk: list[int]) -> None:
         n = len(chunk)

@@ -374,7 +374,14 @@ def test_profile_from_arch_gives_the_references_tiles_for_rwkv6():
     assert plain(t) == plain(j)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "jamba-1.5-large-398b", "whisper-medium",
+def test_profile_from_arch_gives_the_references_tiles_for_whisper():
+    j = jcluster.TenantProfile.from_arch("w", "whisper-medium", accel="opengemm")
+    t = tcluster.TenantProfile.from_arch("w", "whisper-medium", accel="opengemm")
+    assert t.dims == j.dims == (16, 64, 64)
+    assert plain(t) == plain(j)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "jamba-1.5-large-398b", "phi-3-vision-4.2b",
                                   "no-such-arch"])
 def test_profile_from_arch_of_an_unported_family_points_at_the_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP.md"):

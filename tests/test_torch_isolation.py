@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 serves on the CPU with both made unimportable, through the serving engine,
 through ``python -m repro_torch.launch.serve`` in each of its modes (the
-MoE and RWKV-6 families through both too), and through the closed-loop bridge into the
+MoE and RWKV-6 families through both too; the encoder-decoder family through
+the engine, each request over its own encoded window, and the driver refuses it as the
+reference's does), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
 import their modules lazily, so the run calls them)."""
 
@@ -53,6 +55,23 @@ assert sorted(len(r.generated) for r in rwkv_done) == [3, 3, 3], rwkv_done
 sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", "rwkv6-7b",
             "--steps", "6", "--fuse", "2", "--cache-len", "4", "--mode", "fused"]
 runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+whisper = Model(dataclasses.replace(get("whisper-medium").reduced(), remat="none"),
+                device="cpu")
+wparams = whisper.init(0)
+engine = ServingEngine(whisper, wparams, max_slots=2, max_len=32, prefill_chunk=2)
+import torch
+frames = torch.randn((3, whisper.cfg.encoder_seq_len, whisper.cfg.d_model),
+                     generator=torch.Generator().manual_seed(0))
+xk, xv = whisper.cross_kv(wparams, whisper.encode(wparams, frames))
+for i, p in enumerate([[5, 9, 2], [7, 1], [4]]):
+    engine.submit(Request(uid=i, prompt=p, max_new_tokens=3, cross_kv=(xk[:, i], xv[:, i])))
+whisper_done = engine.run_until_done()
+assert sorted(len(r.generated) for r in whisper_done) == [3, 3, 3], whisper_done
+sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", "whisper-medium"]
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    print("refused:", e)
 from repro_torch.bridge import ClosedLoopDriver, TenantEngine
 from repro_torch.cluster import Cluster
 tenants = []
@@ -85,6 +104,7 @@ def test_port_serves_with_jax_and_repro_unimportable():
         assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
     assert "[serve] arch=phi3.5-moe-42b-a6.6b mode=fused batch=4 steps=4: " in out.stdout
     assert "[serve] arch=rwkv6-7b mode=fused batch=4 steps=4: " in out.stdout
+    assert "refused: serve driver targets decoder-only archs" in out.stdout
 
 
 _CALIBRATE_WITHOUT_JAX = """

@@ -44,7 +44,7 @@ def test_config_and_registry_match_reference():
         torch_get("jamba-1.5-large-398b")
 
 
-@pytest.mark.parametrize("change", [{"family": "hybrid"}, {"family": "encdec"},
+@pytest.mark.parametrize("change", [{"family": "hybrid"}, {"family": "vlm"},
                                     {"cache_quant": "int8"}, {"attn_chunk": 64}])
 def test_model_rejects_what_is_not_ported(change):
     cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), **change)

@@ -175,8 +175,14 @@ def test_config_and_registry_match_reference():
 
 @pytest.mark.parametrize("family", ["hybrid", "encdec", "vlm"])
 def test_model_admits_ssm_and_rejects_the_unported_families(family):
+    """ssm's state has no position axis; encdec (ported since) admits and
+    has one; hybrid and vlm are refused."""
     cfg = torch_get(ARCH).reduced()
     assert TorchModel(cfg, device="cpu").cache_has_positions is False
+    if family == "encdec":
+        encdec = TorchModel(torch_get("whisper-medium").reduced(), device="cpu")
+        assert encdec.cache_has_positions is True
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchModel(dataclasses.replace(cfg, family=family), device="cpu")
 
