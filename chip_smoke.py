@@ -9,7 +9,11 @@ Phases, each printing its results; any failure exits non-zero:
    power limit. No CUDA device is a failure.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc/`` with nvcc for
    sm_90a, one nvcc per source, all started together, with the build
-   seconds and the ``-Xptxas -v`` register and shared-memory report.
+   seconds and the ``-Xptxas -v`` register and shared-memory report. Then
+   the seeded draw: ``layers._dense_init`` fills a stack of layers a part
+   of at most one layer at a time, and must give one stacked f32 draw's
+   numbers bit for bit, and its generator offset, at the served stacks'
+   shapes, so every phase's seeded weights are a stacked draw's.
 3. Kernel check of greedy_sample against its plain PyTorch version on the
    card, exactly, at the serving path's shapes, on adversarial rows and on
    ties and NaNs straddling the chunk boundaries of its cluster split, each
@@ -156,6 +160,37 @@ Phases, each printing its results; any failure exits non-zero:
    to the step's position once; peak memory and the phase's seconds. The
    record's ``launches_encdec`` are this path's greedy_sample launches, its
    ``*_encdec`` keys the (4, 51865) times and bound.
+14. Vision-language: phi-3-vision-4.2b whole (32 layers at its published
+   widths, 3,821,079,552 parameters, 7.64 GB of bf16 weights seeded on the
+   card), after the whisper model is freed. greedy_sample at the head's
+   shapes, (4, 32064) and (1, 32064) bf16, as in 13; ``forward`` over a
+   seeded (2, 576, 3072) image prefix and 8 tokens: (2, 8, 32064) finite
+   logits, moved by a second prefix (printed by how much), and equal bit
+   for bit to the dense trunk of the same weights over the prefix rows and
+   the tokens with the prefix dropped before the head; the text backbone's
+   ``forward`` (an empty prefix) against teacher-forced ``decode_step`` as
+   in 5; the serving engine (4 requests of 16-32 seeded tokens, 16 new
+   tokens, 4 slots x 512, prefill chunk 8, no image, as the reference
+   serves a vlm) fused then host-sampled, with bit-identical streams and
+   greedy_sample once per fused decode launch, counted from 0 just before
+   the fused run and read just after; one eager fused decode step at B = 4,
+   position 128, profiled (its six costliest device operations) beside the
+   bound of reading the weights and the K/V rows up to its position once.
+   The record's ``launches_vlm`` are this path's greedy_sample launches,
+   its ``*_vlm`` keys the (4, 32064) times and bound.
+15. Dense: phi4-mini-3.8b (tied head, vocab 200,064), minitron-4b (GELU
+   MLP, vocab 256,000) and qwen2.5-32b (QKV bias, 65.53 GB), each whole and
+   seeded, one after another, each freed before the next. For each,
+   greedy_sample at the head's shapes as in 13 (a cluster of 16 at B = 4,
+   chunks of 12,504, 16,000 and 9,504); the draw's seconds and peak
+   memory (qwen2.5-32b's predicted peak printed beside the card's memory);
+   ``launch.serve.serve`` at the command's defaults fused at fuse 8, with
+   its ids equal to the same schedule run eagerly, and sequential at 16
+   steps, each with greedy_sample once per produced step; the fused step
+   set beside the bound of reading the weights and the K/V rows once. The
+   record's ``launches_dense`` sum the three fused runs' greedy_sample
+   launches (``launches_<model>`` each), its ``*_<model>`` keys each
+   head's times and bound.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -204,6 +239,16 @@ SSM_F32_RATIO = 1.25
 ENCDEC_ARCH, ENCDEC_V = "whisper-medium", 51_865
 ENCDEC_REQUESTS, ENCDEC_PROMPT, ENCDEC_NEW = 8, (4, 33), 32  # prompts of 4-32 seeded tokens
 ENCDEC_SLOTS, ENCDEC_MAX_LEN = 4, 448  # whisper's max_target_positions
+# the [vlm] phase: phi-3-vision-4.2b whole, at its published widths and depth
+VLM_ARCH, VLM_V = "phi-3-vision-4.2b", 32_064
+VLM_REQUESTS, VLM_PROMPT, VLM_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
+VLM_AT = 128  # the position of the profiled decode step
+# the [dense] phase: the reference's other single-card dense configurations, whole,
+# each with its tag (the record's key suffix) and its published (layers, d_model, d_ff, vocab)
+DENSE_ARCHS = (("phi4-mini-3.8b", "[phi4-mini]", (32, 3072, 8192, 200_064)),
+               ("minitron-4b", "[minitron]", (32, 3072, 9216, 256_000)),
+               ("qwen2.5-32b", "[qwen2.5-32b]", (64, 5120, 27648, 152_064)))
+DENSE_SEQUENTIAL_STEPS = 16
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
@@ -330,6 +375,32 @@ def phase_build() -> None:
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
             print(f"[build]   {line}")
+
+
+def phase_seeded_draw() -> None:
+    """``layers._dense_init`` draws a stack of layers a part at a time (no
+    f32 scratch past one layer), with the numbers of one stacked f32 draw:
+    checked bit for bit at shapes of the served models' stacks (two of
+    them past 2**31 bytes of f32, which PyTorch draws in launches of
+    halves), and the generator's offset after it, so every phase's seeded
+    weights are those of a stacked draw."""
+    import math
+
+    from repro_torch.models import layers as L
+
+    for shape, stack in (((4096, 4096), 16), ((4096, 14336), 16), ((13001, 13777), 3),
+                         ((4096, 16), 16), ((1000, 999), 3), ((7, 5), 3)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        got, offset = L._dense_init(gen, shape, stack=stack), gen.get_offset()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        x = torch.randn((stack, *shape), generator=gen, device="cuda")
+        same = torch.equal(got, (x * (1.0 / math.sqrt(shape[0]))).to(torch.bfloat16))
+        print(f"[init] _dense_init stack={stack} of {shape}: equals one stacked f32 draw bit for "
+              f"bit: {same}; generator offset {offset} (the stacked draw's {gen.get_offset()})")
+        if not same or offset != gen.get_offset():
+            raise SystemExit("a stacked draw made in parts is not the stacked f32 draw")
+        del got, x
+    torch.cuda.empty_cache()
 
 
 def _adversarial(v: int, dtype: torch.dtype) -> torch.Tensor:
@@ -1469,6 +1540,18 @@ def _masked_fused_step(model, params, cache: dict) -> None:
     torch.cuda.synchronize()
 
 
+def _tree_bytes(params: dict) -> tuple[int, dict]:
+    """The tree's parameter count and its bytes by top-level name."""
+    from repro_torch.dispatch.executor import flatten_with_path
+
+    n, nbytes = 0, {}
+    for path, p in flatten_with_path(params):
+        top = path.split("'")[1]
+        n += p.numel()
+        nbytes[top] = nbytes.get(top, 0) + p.numel() * p.element_size()
+    return n, nbytes
+
+
 def _free_model(tag: str, found: int) -> None:
     """Collects the phase's garbage (engines and executors hold the weights
     through reference cycles), empties the allocator's cache, and fails
@@ -1721,7 +1804,6 @@ def phase_ssm(smi: str) -> dict:
     beside the step's bound. Frees the model at the end, and checks that
     it is gone."""
     from repro_torch.configs import get
-    from repro_torch.dispatch.executor import flatten_with_path
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.models.model import Model
 
@@ -1735,12 +1817,7 @@ def phase_ssm(smi: str) -> dict:
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     torch.cuda.synchronize()
-    leaves = flatten_with_path(params)
-    n = sum(p.numel() for _, p in leaves)
-    nbytes = {}  # by top-level name: embed, final_norm, head, layers
-    for path, p in leaves:
-        top = path.split("'")[1]
-        nbytes[top] = nbytes.get(top, 0) + p.numel() * p.element_size()
+    n, nbytes = _tree_bytes(params)  # by top-level name: embed, final_norm, head, layers
     print(f"[ssm] {SSM_ARCH} whole: {cfg.n_layers} of {cfg.n_layers} layers; widths as "
           f"published: d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
           f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n} parameters in the "
@@ -1815,7 +1892,7 @@ def phase_ssm(smi: str) -> dict:
           f"({bound[1]}); fused {fused_ms:.4f} ms a step = {fused_ms / bound[0]:.2f}x it, busy "
           f"{modes['fused']['busy_ms']:.4f} ms, idle {modes['fused']['idle']:.3f}; "
           f"max_memory_allocated while serving={torch.cuda.max_memory_allocated()} B ({smi})")
-    del model, params, leaves
+    del model, params
     _free_model("[ssm]", found)
     print(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
     return {"greedy_sample": launches, **greedy}
@@ -1876,7 +1953,6 @@ def phase_encdec(smi: str) -> dict:
     bound, with no copy of the cross K/V. Frees the model at the end, and
     checks that it is gone."""
     from repro_torch.configs import get
-    from repro_torch.dispatch.executor import flatten_with_path
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.models.model import Model
 
@@ -1890,12 +1966,7 @@ def phase_encdec(smi: str) -> dict:
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     torch.cuda.synchronize()
-    leaves = flatten_with_path(params)
-    n = sum(p.numel() for _, p in leaves)
-    nbytes = {}  # by top-level name: embed, enc_layers, enc_final_norm, dec_layers, final_norm
-    for path, p in leaves:
-        top = path.split("'")[1]
-        nbytes[top] = nbytes.get(top, 0) + p.numel() * p.element_size()
+    n, nbytes = _tree_bytes(params)  # embed, enc_layers, enc_final_norm, dec_layers, final_norm
     print(f"[encdec] {ENCDEC_ARCH} whole: {cfg.n_encoder_layers} encoder and {cfg.n_layers} "
           f"decoder layers; widths as published: d_model {cfg.d_model}, {cfg.n_heads} heads of "
           f"{cfg.head_dim_} (MHA), d_ff {cfg.d_ff} (GELU), vocab {cfg.vocab_size} (tied), "
@@ -2047,10 +2118,256 @@ def phase_encdec(smi: str) -> dict:
     if readers != {"aten::bmm"}:
         raise SystemExit(f"the decode step copies xk/xv, or reads them through {readers}, not "
                          f"aten::bmm alone")
-    del model, params, leaves, cache, xk, xv, frames, ca, windows, run, rows
+    del model, params, cache, xk, xv, frames, ca, windows, run, rows
     _free_model("[encdec]", found)
     print(f"[encdec] phase took {time.perf_counter() - t0:.1f} s")
     return {"greedy_sample": launches, **greedy}
+
+
+def _draw(tag: str, cfg, layers: tuple) -> tuple:
+    """A model of ``cfg`` on the card with seeded weights, drawn after the
+    allocator is emptied and its peak reset; prints the tree's count and
+    bytes, the seconds taken and the peak, and fails unless the published
+    ``layers`` (n_layers, d_model, d_ff, vocab) are what was built.
+    Returns (model, params, parameters, bytes by top-level name, memory
+    found before the draw)."""
+    from repro_torch.models.model import Model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
+    ti = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - ti
+    n, nbytes = _tree_bytes(params)
+    print(f"{tag} {cfg.name} whole: {cfg.n_layers} of {cfg.n_layers} layers; widths as "
+          f"published: d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim_}, d_ff {cfg.d_ff} ({cfg.mlp_kind}), vocab {cfg.vocab_size} "
+          f"({'tied' if cfg.tie_embeddings else 'untied'}){', QKV bias' if cfg.qkv_bias else ''}"
+          f"; {n} parameters in the tree, {sum(nbytes.values())} B "
+          f"({sum(nbytes.values()) / 1e9:.2f} GB) in bf16; seeded on the card in "
+          f"{seconds:.2f} s, max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    if (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != layers:
+        raise SystemExit(f"{cfg.name} is not at its published widths and depth")
+    return model, params, n, nbytes, found
+
+
+def _weight_bytes(model, nbytes: dict, b: int) -> int:
+    """Bytes of weights a decode step of ``b`` rows must read: the trunk,
+    the final norm and the head once, and ``b`` rows of the embedding (all
+    of it where the head is the tied embedding)."""
+    cfg = model.cfg
+    head = nbytes["embed"] if cfg.tie_embeddings else nbytes["head"] + b * cfg.d_model * 2
+    return nbytes["layers"] + nbytes["final_norm"] + head
+
+
+def _kv_bytes(cfg, b: int, rows: int) -> int:
+    """Bytes of the K/V rows ``b`` slots read at ``rows`` positions."""
+    return 2 * cfg.n_layers * b * rows * cfg.n_kv_heads * cfg.head_dim_ * 2
+
+
+def phase_vlm(smi: str) -> dict:
+    """The vision-language family: phi-3-vision-4.2b whole (32 layers at its
+    published widths), seeded weights. greedy_sample at the head's shapes;
+    ``forward`` over a seeded 576-row image prefix and 8 tokens, against
+    another prefix and against the dense trunk of the same weights over the
+    prefix and the tokens; the text backbone's forward against
+    teacher-forced decode; the serving engine fused and host-sampled on the
+    same requests (no image, as the reference serves a vlm), with
+    greedy_sample counted from 0 just before the fused run and read just
+    after; one eager fused decode step profiled beside its bound. Frees the
+    model at the end, and checks that it is gone."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.models.model import Model, _norm
+
+    t0 = time.perf_counter()
+    cfg = get(VLM_ARCH)
+    greedy = _head_greedy_check(smi, "[vlm]", VLM_V, SEED + 15)
+    model, params, n, nbytes, found = _draw("[vlm]", cfg, (32, 3072, 8192, VLM_V))
+
+    # forward over the image prefix: shape, finiteness, the prefix's effect,
+    # and the dense trunk over the same embedding rows, bit for bit
+    b, s, p, d = 2, 8, cfg.frontend_tokens, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    prefix, other = (torch.randn((b, p, d), generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = model.forward(params, {"tokens": tokens, "frontend_embeds": prefix})
+    moved, _ = model.forward(params, {"tokens": tokens, "frontend_embeds": other})
+    dense = Model(dataclasses.replace(cfg, family="dense"), device="cuda")
+    x, _ = dense._uniform_trunk(params["layers"],
+                                torch.cat([prefix, params["embed"][tokens]], dim=1))
+    want = _norm(params["final_norm"], x, cfg.norm_eps)[:, p:] @ params["head"]
+    change = float((moved.float() - logits.float()).abs().max())
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[vlm] forward B={b} over a ({b}, {p}, {d}) image prefix and {s} tokens: logits "
+          f"{tuple(logits.shape)} {logits.dtype}, finite={finite}; another prefix moves the text "
+          f"logits by up to {change:.4f} (mean |change| "
+          f"{float((moved.float() - logits.float()).abs().mean()):.4f}); the dense trunk over "
+          f"the prefix rows and the tokens, the prefix dropped before the head, equal bit for "
+          f"bit: {torch.equal(want, logits)}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B")
+    if tuple(logits.shape) != (b, s, VLM_V) or not finite or change == 0 \
+            or not torch.equal(want, logits):
+        raise SystemExit("the vlm forward gave another shape, non-finite logits, logits the "
+                         "prefix does not move, or not the dense trunk's over the prefix")
+    del logits, moved, x, want, dense, prefix, other
+
+    phase_numerics(model, params, "[vlm] text backbone:",
+                   {"frontend_embeds": torch.zeros((2, 0, d), device="cuda")})
+
+    # the serving engine, fused then host-sampled, on the text alone
+    reqs = _requests(cfg, VLM_REQUESTS, VLM_PROMPT)
+    _serve(model, params, reqs[:1], "fused", max_new=2, tag="[vlm]")  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    greedy_sample.launches = 0
+    fused = _serve(model, params, reqs, "fused", max_new=VLM_NEW, tag="[vlm]")
+    launches = greedy_sample.launches
+    print(f"[vlm] greedy_sample launches in the fused run: {launches}; "
+          f"{fused['decode_launches']} fused decode launches, {fused['prefill_launches']} "
+          f"prefill launches of 8 steps; 4 slots x 512; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B ({smi})")
+    if launches == 0 or launches != fused["decode_launches"]:
+        raise SystemExit("the vlm engine did not launch greedy_sample once per fused decode "
+                         "launch")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != VLM_NEW:
+            raise SystemExit(f"vlm request {uid} finished with {len(fused['streams'][uid])} "
+                             f"tokens")
+    host = _serve(model, params, reqs, "host", max_new=VLM_NEW, tag="[vlm]")
+    if host["streams"] != fused["streams"]:
+        raise SystemExit("vlm fused and host sampling gave different token streams")
+    print(f"[vlm] fused and host token streams are bit-identical; first stream "
+          f"{fused['streams'][0][:8]}")
+
+    # one eager fused decode step, profiled, beside the bytes it must read
+    b = SERVE_BATCH
+    cache = model.init_cache(b, 512)
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    no_override = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    pos = torch.full((b,), VLM_AT, dtype=torch.int32, device="cuda")
+
+    def step() -> None:
+        model.decode_and_sample(params, cache, ones, no_override, ~live, pos, live)
+
+    step()
+    step_ms = _events_ms(step, 5)
+    prof = _profiled(lambda: [step() for _ in range(3)], 3, top=6)
+    weights, kv = _weight_bytes(model, nbytes, b), _kv_bytes(cfg, b, VLM_AT + 1)
+    bound = _bound_ms(weights + kv, 2.0 * b * weights / 2, BF16_FLOPS)  # 2 ops a weight a row
+    print(f"[vlm] one eager fused decode step B={b} at position {VLM_AT} of 512: "
+          f"{prof['ops']:.1f} device ops, busy {prof['busy_ms']:.4f} ms (torch.profiler, mean "
+          f"of 3), {step_ms:.4f} ms by CUDA events around 5 eagerly issued steps; bound "
+          f"{weights + kv} B (weights {weights} B, the K/V rows up to position {VLM_AT} {kv} B, "
+          f"{kv // (b * (VLM_AT + 1))} B a token) = {bound[0]:.4f} ms ({bound[1]}); busy = "
+          f"{prof['busy_ms'] / bound[0]:.2f}x it ({smi})")
+    print(f"[vlm] decode step profile, most device time a step: {_top(prof)}")
+    del model, params, cache
+    _free_model("[vlm]", found)
+    print(f"[vlm] phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": launches, **greedy}
+
+
+def _serve_dense(model, params, smi: str, tag: str, bound: tuple) -> int:
+    """``launch.serve.serve`` at the command's defaults (batch 4, 64 steps,
+    cache 256) fused at fuse 8, its ids against the same schedule run
+    eagerly, and sequential at 16 steps, each with greedy_sample counted
+    from 0 just before and read just after; fused set beside ``bound``.
+    Returns the fused run's greedy_sample launches."""
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.launch.serve import serve
+
+    runs = {}
+    for mode, steps in (("fused", SERVE_STEPS), ("sequential", DENSE_SEQUENTIAL_STEPS)):
+        greedy_sample.launches = 0
+        run = serve(model, params, batch=SERVE_BATCH, steps=steps, cache_len=SERVE_CACHE,
+                    mode=mode, fuse=SERVE_FUSE)
+        counted = greedy_sample.launches
+        print(f"{tag} serve mode={mode} batch={SERVE_BATCH} steps={run.produced}: "
+              f"{run.ms_per_step:.4f} ms/step, {run.tokens_per_s:.1f} tok/s by wall clock; "
+              f"device {run.device_ms / run.produced:.4f} ms/step (CUDA events around the timed "
+              f"loop); greedy_sample launches in the timed loop {run.sample_launches} (counter "
+              f"{counted}, warm-up and captures included)"
+              + (f"; {len(run.graphs)} graphs captured in {run.capture_s:.3f} s"
+                 if mode == "fused" else "") + f" ({smi})")
+        if counted == 0 or run.sample_launches != run.produced:
+            raise SystemExit(f"{tag} serve {mode} launched greedy_sample {run.sample_launches} "
+                             f"times for {run.produced} steps")
+        if tuple(run.ids.shape) != (steps - (SERVE_FUSE if mode == "fused" else 1),
+                                    SERVE_BATCH) \
+                or not bool(((run.ids >= 0) & (run.ids < model.cfg.vocab_size)).all()):
+            raise SystemExit(f"{tag} serve {mode} gave ids of shape {tuple(run.ids.shape)} "
+                             f"outside the vocabulary")
+        runs[mode] = (run, counted)
+    fused = runs["fused"][0]
+    if not fused.graphs or not all(g.replays for g in fused.graphs):
+        raise SystemExit(f"{tag} fused serving did not replay its CUDA graphs")
+    if not torch.equal(fused.ids, _eager_fused_ids(model, params, SERVE_FUSE)):
+        raise SystemExit(f"{tag} fused serving's graph replays differ from the same schedule "
+                         f"run eagerly")
+    fused_ms = fused.device_ms / fused.produced
+    print(f"{tag} fused fuse={SERVE_FUSE} ids equal the eager schedule's "
+          f"({tuple(fused.ids.shape)}); first steps {fused.ids[:2].tolist()}; fused "
+          f"{fused_ms:.4f} ms a step against its {bound[0]:.4f} ms bound ({bound[1]}) = "
+          f"{fused_ms / bound[0]:.2f}x; max_memory_allocated while serving="
+          f"{torch.cuda.max_memory_allocated()} B ({smi})")
+    steps = 3 * SERVE_FUSE
+    prof = _profiled(lambda: serve(model, params, batch=SERVE_BATCH, steps=steps,
+                                   cache_len=SERVE_CACHE, mode="fused", fuse=SERVE_FUSE),
+                     steps, top=6)
+    print(f"{tag} profile, mode=fused, {steps} steps (warm-up included): {prof['ops']:.1f} device "
+          f"ops a step, busy {prof['busy_ms']:.4f} ms a step, {prof['busy_ms'] / bound[0]:.2f}x "
+          f"the bound; idle {1 - prof['busy_ms'] / fused_ms:.3f} of the timed run's step; most "
+          f"device time a step: {_top(prof)}")
+    return runs["fused"][1]
+
+
+def phase_dense(smi: str) -> dict:
+    """The reference's other single-card dense configurations, whole and
+    seeded, one after another: phi4-mini-3.8b (tied head, vocab 200,064),
+    minitron-4b (GELU MLP, vocab 256,000) and qwen2.5-32b (QKV bias,
+    65.5 GB, vocab 152,064). For each, greedy_sample at the head's shapes,
+    the draw's seconds and peak, the serve loop fused and sequential
+    beside the bound of reading the weights once, and the model freed
+    before the next. Returns each model's fused greedy_sample launches and
+    its head's times under its tag."""
+    from repro_torch.configs import get
+
+    out, total, worst = {}, 0, 0
+    for arch, tag, published in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get(arch)
+        greedy = _head_greedy_check(smi, tag, published[3], SEED + 17 + len(out))
+        worst = max(worst, greedy.pop("max_abs_err"))
+        out.update(greedy)
+        if arch == "qwen2.5-32b":  # one f32 draw of the head beside every bf16 weight
+            peak = 2 * cfg.param_count() + 4 * cfg.d_model * cfg.vocab_size
+            print(f"{tag} predicted peak while drawing: {peak} B ({peak / 1e9:.1f} GB: the bf16 "
+                  f"weights and the head's f32 draw); the card has "
+                  f"{torch.cuda.get_device_properties(0).total_memory} B")
+        model, params, n, nbytes, found = _draw(tag, cfg, published)
+        torch.cuda.reset_peak_memory_stats()
+        weights = _weight_bytes(model, nbytes, SERVE_BATCH)
+        kv = _kv_bytes(cfg, SERVE_BATCH, (SERVE_FUSE + SERVE_STEPS) // 2)
+        bound = _bound_ms(weights + kv, 2.0 * SERVE_BATCH * weights / 2, BF16_FLOPS)
+        print(f"{tag} a fused step's bound at B={SERVE_BATCH}: {weights + kv} B (weights "
+              f"{weights} B, the K/V rows up to the timed loop's mean position {kv} B) = "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        launches = _serve_dense(model, params, smi, tag, bound)
+        out[f"launches_{tag.strip('[]')}"] = launches
+        total += launches
+        del model, params
+        _free_model(tag, found)
+        print(f"{tag} phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": total, "max_abs_err": worst, **out}
 
 
 def main() -> None:
@@ -2059,15 +2376,15 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
+    phase_seeded_draw()
     records = [phase_kernel_check(smi)]
 
     from repro_torch.configs import get
-    from repro_torch.dispatch.executor import flatten_with_path
     from repro_torch.models.model import Model
 
     model = Model(get("qwen2-0.5b"), device="cuda")
     params = model.init(SEED)
-    n_params = sum(p.numel() for _, p in flatten_with_path(params))
+    n_params = _tree_bytes(params)[0]
     print(f"[model] qwen2-0.5b full width, seeded: {n_params} parameters")
     launches = phase_main_path(model, params)
     phase_numerics(model, params)
@@ -2086,6 +2403,8 @@ def main() -> None:
     moe = phase_moe(smi)
     ssm = phase_ssm(smi)
     encdec = phase_encdec(smi)
+    vlm = phase_vlm(smi)
+    dense = phase_dense(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
@@ -2097,6 +2416,12 @@ def main() -> None:
             record["launches_encdec"] = encdec.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], encdec.pop("max_abs_err"))
             record.update(encdec)  # the whisper head's shape: times, bound and cluster
+            for path in (vlm, dense):  # phi-3-vision's head, then the three dense heads
+                record["max_abs_err"] = max(record["max_abs_err"], path.pop("max_abs_err"))
+            record["launches_vlm"] = vlm.pop("greedy_sample")
+            record["launches_dense"] = dense.pop("greedy_sample")
+            record.update(vlm)
+            record.update(dense)
         if record["name"] == "top_k":  # the MoE router's launches: this path's kernel now
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")

@@ -28,10 +28,11 @@ of the last position's logits by ``kernels.ops.sample_op``, the hand-written
 ``greedy_sample`` on the card. A run that would write a cache position past
 ``cache_len`` raises before its first launch; a model whose cache has no
 position axis (``--arch rwkv6-7b``, a recurrent state) runs any number of
-steps, as the reference's loop does. The encoder-decoder family
-(``--arch whisper-medium``) is refused before any weights are drawn, with
-the reference driver's message: its decode needs an encoded window in the
-cache, which this loop does not make.
+steps, as the reference's loop does. The encoder-decoder and
+vision-language families (``--arch whisper-medium``, ``--arch
+phi-3-vision-4.2b``) are refused before any weights are drawn, with the
+reference driver's message: their front ends (an encoded window, an image)
+are not made by this loop.
 """
 
 from __future__ import annotations

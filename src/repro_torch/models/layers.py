@@ -35,12 +35,80 @@ COMPUTE_DTYPE = torch.bfloat16
 def _dense_init(gen: torch.Generator, shape: tuple[int, ...], scale_axis: int = 0,
                 stack: int = 0) -> torch.Tensor:
     """N(0, 1/fan_in) in f32, stored in bf16, as the reference draws it.
-    ``stack`` > 0 draws that many layers at once under a leading axis; the
-    scale still comes from the per-layer ``shape``."""
+    ``stack`` > 0 gives that many layers under a leading axis, the scale
+    from the per-layer ``shape``: the numbers of one f32 draw of the whole
+    stack, made a part of at most one layer at a time into the bf16 stack
+    (:func:`_normal_parts`). A stacked f32 draw of qwen2.5-32b's MLP
+    matrices would not fit one card beside its weights; drawn in parts,
+    the seeded weights stay those of the stacked draw."""
     scale = 1.0 / math.sqrt(shape[scale_axis])
-    full = (stack, *shape) if stack else shape
-    x = torch.randn(full, generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * scale).to(COMPUTE_DTYPE)
+    if not stack:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return x.mul_(scale).to(COMPUTE_DTYPE)
+    out = torch.empty((stack, *shape), dtype=COMPUTE_DTYPE, device=gen.device)
+    flat = out.view(-1)
+    for start, part in _normal_parts(gen, flat.numel(), out[0].numel()):
+        flat[start:start + part.numel()] = part.mul_(scale)
+    return out
+
+
+def _launches(n: int) -> list[tuple[int, int]]:
+    """The spans of ``torch.randn(n)`` on a card that PyTorch draws in
+    launches of their own, in order: where a span's f32 bytes pass 32-bit
+    offsets it halves it, the first half first. A draw of more than one
+    launch first moves the generator's offset as one launch of all ``n``
+    would, and then draws each launch from there."""
+    if (n - 1) * 4 < 2**31 - 1:
+        return [(0, n)]
+    half = n // 2
+    return _launches(half) + [(half + a, half + b) for a, b in _launches(n - half)]
+
+
+def _normal_parts(gen: torch.Generator, n: int, most: int):
+    """Yields ``(start, part)``: f32 tensors of at most ``most`` elements (or
+    the draw's unit, where that is larger) that together hold the numbers
+    of one ``torch.randn(n, generator=gen)``, and leave ``gen`` where that
+    call leaves it.
+
+    The CPU draws 16 numbers at a time in order, and redraws the last 16
+    where ``n`` is not a multiple of 16; so parts of a multiple of 16, the
+    last one at least 16 long, continue one stream. A card draws each of
+    :func:`_launches` on its own; in one, each of ``T`` threads (256 a
+    block, as many blocks as the SMs hold, the grid full from ``T``
+    elements on) draws 4 numbers a Philox step, element ``j`` from thread
+    ``j % T`` at step ``j // 4T``, and the generator's offset moves 4 a
+    step; so a part of a multiple of ``4T`` starting at ``c`` of a launch,
+    drawn from the offset the launch started at plus ``4 · c // 4T``, is
+    that launch's slice. A launch too small to fill the grid is drawn
+    whole."""
+    if gen.device.type == "cpu":
+        size = max(16, most // 16 * 16)
+        starts = list(range(0, n, size))
+        if len(starts) > 1 and n - starts[-1] < 16:
+            starts.pop()  # the last part takes the CPU's redrawn tail
+        for start, stop in zip(starts, starts[1:] + [n]):
+            yield start, torch.randn(stop - start, generator=gen, dtype=torch.float32)
+        return
+    props = torch.cuda.get_device_properties(gen.device)
+    threads = props.multi_processor_count * props.max_threads_per_multi_processor
+    unit = 4 * threads  # the elements one Philox step of every thread draws
+    size = max(unit, most // unit * unit)
+    spans = _launches(n)
+    if len(spans) > 1:
+        gen.set_offset(gen.get_offset() + 4 * -(-n // unit))
+    for first, last in spans:
+        m = last - first
+        if m < threads:
+            yield first, torch.randn(m, generator=gen, dtype=torch.float32, device=gen.device)
+            continue
+        base = gen.get_offset()
+        for start in range(0, m, size):
+            gen.set_offset(base + 4 * (start // unit))
+            k = min(size, m - start)
+            part = torch.randn(-(-k // unit) * unit, generator=gen, dtype=torch.float32,
+                               device=gen.device)  # whole steps: the launch's grid
+            yield first + start, part[:k]
+        gen.set_offset(base + 4 * -(-m // unit))
 
 
 # --------------------------------------------------------------------------

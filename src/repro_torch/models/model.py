@@ -1,8 +1,11 @@
-"""The model facade of the port: the dense, MoE, RWKV-6 and
-encoder-decoder families, for serving.
+"""The model facade of the port: the dense, vision-language, MoE, RWKV-6
+and encoder-decoder families, for serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
-``family`` ``"dense"`` and ``"moe"`` (the MoE MLP in every layer in place
+``family`` ``"dense"``, ``"vlm"`` (the dense trunk; ``forward`` puts the
+vision front end's patch embeddings before the tokens and drops their rows
+before the head, and the serving path, as the reference's, runs the text
+alone from position 0), ``"moe"`` (the MoE MLP in every layer in place
 of the dense one), ``"ssm"`` (RWKV-6: a time mix and a channel mix a layer,
 LayerNorm with bias) and ``"encdec"`` (whisper: a non-causal encoder over
 audio frames and a decoder with self- and cross-attention, sinusoidal
@@ -55,10 +58,10 @@ def _layer(tree: dict, i: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family not in ("dense", "moe", "ssm", "encdec"):
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "encdec"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported; the port runs dense, moe, ssm "
-                f"(RWKV-6) and encdec (whisper), and hybrid and vlm are queued in "
+                f"family {cfg.family!r} is not ported; the port runs dense, vlm, moe, ssm "
+                f"(RWKV-6) and encdec (whisper), and hybrid is queued in "
                 f"ROADMAP.md, Queue 1, \"The other families\"")
         if cfg.cache_quant != "none" or cfg.attn_chunk:
             raise NotImplementedError(
@@ -130,7 +133,7 @@ class Model:
             }
         if cfg.family == "moe":
             params["layers"]["moe"] = L.moe_init(gen, cfg, stack=n)
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "vlm"):
             params["layers"]["mlp"] = L.mlp_init(gen, cfg, stack=n)
         if not cfg.tie_embeddings:
             params["head"] = L._dense_init(gen, (d, cfg.vocab_size))
@@ -145,18 +148,27 @@ class Model:
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits, moe_aux_loss): the sum of the layers' aux losses,
-        zero for the dense, ssm and encdec families."""
+        zero for the dense, vlm, ssm and encdec families. ``vlm`` takes
+        ``batch["frontend_embeds"]`` (B, P, d), cast to bf16 and put before
+        the token embeddings: the trunk runs positions 0 … P+S−1 and the P
+        prefix rows are dropped after the final norm, so the logits are
+        the tokens' (B, S, V)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return self._forward_encdec(params, batch)
         x = params["embed"][batch["tokens"]]  # (B, S, d)
+        prefix = 0
+        if cfg.family == "vlm":
+            fe = batch["frontend_embeds"].to(x.dtype)  # (B, P, d)
+            x = torch.cat([fe, x], dim=1)
+            prefix = fe.shape[1]
         if cfg.family == "ssm":
             x = self._rwkv_trunk(params["layers"], x)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             x, aux = self._uniform_trunk(params["layers"], x)
         x = _norm(params["final_norm"], x, cfg.norm_eps)
-        logits = x @ self._head(params)
+        logits = x[:, prefix:] @ self._head(params)
         return logits, aux
 
     def _uniform_trunk(self, trunk: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

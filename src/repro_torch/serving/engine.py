@@ -27,6 +27,13 @@ at once.
   The reference's engine has no such field: its caller writes ``xk``/``xv``
   once, and a request in a freed slot reads the window left there.
 
+* **Vision-language models** (``vlm``) are served as their text
+  backbone, as the reference's engine serves them: a request carries no
+  image, and its tokens decode from position 0 through the dense trunk.
+  Only ``Model.forward`` reads the patch embeddings, so served logits are
+  not ``forward``'s over an image and the same text. A request field for
+  the prefix would be a feature the reference lacks.
+
 * **Batched prefill**: admission runs the prompt through
   :meth:`~repro_torch.models.model.Model.prefill_chunk` — ``ceil(p/chunk)``
   masked launches instead of p full-batch steps, each advancing *only* the

@@ -381,7 +381,16 @@ def test_profile_from_arch_gives_the_references_tiles_for_whisper():
     assert plain(t) == plain(j)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "jamba-1.5-large-398b", "phi-3-vision-4.2b",
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "phi4-mini-3.8b", "minitron-4b",
+                                  "qwen2.5-32b", "paper-lm-100m"])
+def test_profile_from_arch_gives_the_references_tiles_for_the_new_configs(arch):
+    j = jcluster.TenantProfile.from_arch("d", arch, accel="opengemm")
+    t = tcluster.TenantProfile.from_arch("d", arch, accel="opengemm")
+    assert t.dims == j.dims
+    assert plain(t) == plain(j)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "jamba-1.5-large-398b", "qwen2.5-72b",
                                   "no-such-arch"])
 def test_profile_from_arch_of_an_unported_family_points_at_the_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP.md"):

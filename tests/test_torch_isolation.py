@@ -3,7 +3,8 @@ serves on the CPU with both made unimportable, through the serving engine,
 through ``python -m repro_torch.launch.serve`` in each of its modes (the
 MoE and RWKV-6 families through both too; the encoder-decoder family through
 the engine, each request over its own encoded window, and the driver refuses it as the
-reference's does), and through the closed-loop bridge into the
+reference's does; the vision-language family through its prefixed forward and the engine;
+the other dense configurations through the driver), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
 import their modules lazily, so the run calls them)."""
 
@@ -72,6 +73,20 @@ try:
     runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
 except SystemExit as e:
     print("refused:", e)
+vlm = Model(dataclasses.replace(get("phi-3-vision-4.2b").reduced(), remat="none"), device="cpu")
+vparams = vlm.init(0)
+logits, _ = vlm.forward(vparams, {"tokens": torch.tensor([[5, 9, 2]]),
+                                  "frontend_embeds": torch.randn((1, 8, vlm.cfg.d_model))})
+assert logits.shape == (1, 3, vlm.cfg.vocab_size), logits.shape
+engine = ServingEngine(vlm, vparams, max_slots=2, max_len=32, prefill_chunk=2)
+for i, p in enumerate([[5, 9, 2], [7, 1], [4]]):
+    engine.submit(Request(uid=i, prompt=p, max_new_tokens=3))
+vlm_done = engine.run_until_done()
+assert sorted(len(r.generated) for r in vlm_done) == [3, 3, 3], vlm_done
+for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"):
+    sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", arch, "--steps", "6",
+                "--fuse", "2", "--cache-len", "8", "--mode", "fused"]
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
 from repro_torch.bridge import ClosedLoopDriver, TenantEngine
 from repro_torch.cluster import Cluster
 tenants = []
@@ -104,6 +119,8 @@ def test_port_serves_with_jax_and_repro_unimportable():
         assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
     assert "[serve] arch=phi3.5-moe-42b-a6.6b mode=fused batch=4 steps=4: " in out.stdout
     assert "[serve] arch=rwkv6-7b mode=fused batch=4 steps=4: " in out.stdout
+    for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"):
+        assert f"[serve] arch={arch} mode=fused batch=4 steps=4: " in out.stdout
     assert "refused: serve driver targets decoder-only archs" in out.stdout
 
 

@@ -44,8 +44,11 @@ def test_config_and_registry_match_reference():
         torch_get("jamba-1.5-large-398b")
 
 
-@pytest.mark.parametrize("change", [{"family": "hybrid"}, {"family": "vlm"},
-                                    {"cache_quant": "int8"}, {"attn_chunk": 64}])
+@pytest.mark.parametrize("change", [
+    {"family": "hybrid"},
+    {"family": "hybrid", "attn_period": 8, "n_experts": 4, "experts_per_token": 2,
+     "moe_period": 2},  # jamba's layout: Mamba, attention a group of 8, MoE every other layer
+    {"cache_quant": "int8"}, {"attn_chunk": 64}])
 def test_model_rejects_what_is_not_ported(change):
     cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -173,18 +173,29 @@ def test_config_and_registry_match_reference():
         torch_get("jamba-1.5-large-398b")
 
 
-@pytest.mark.parametrize("family", ["hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["hybrid", "encdec", "jamba"])
 def test_model_admits_ssm_and_rejects_the_unported_families(family):
     """ssm's state has no position axis; encdec (ported since) admits and
-    has one; hybrid and vlm are refused."""
+    has one; hybrid is refused, also in the layout of jamba-1.5-large-398b
+    (the reference's configuration, reduced), whose name the port's
+    registry lacks."""
     cfg = torch_get(ARCH).reduced()
     assert TorchModel(cfg, device="cpu").cache_has_positions is False
     if family == "encdec":
         encdec = TorchModel(torch_get("whisper-medium").reduced(), device="cpu")
         assert encdec.cache_has_positions is True
         return
+    if family == "jamba":
+        from repro.configs import get
+
+        jamba = dataclasses.asdict(get("jamba-1.5-large-398b").reduced())
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            torch_get(jamba["name"])
+        cfg = type(cfg)(**jamba)
+    else:
+        cfg = dataclasses.replace(cfg, family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchModel(dataclasses.replace(cfg, family=family), device="cpu")
+        TorchModel(cfg, device="cpu")
 
 
 def test_init_draws_the_reference_tree(pair):
