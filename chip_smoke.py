@@ -191,6 +191,30 @@ Phases, each printing its results; any failure exits non-zero:
    record's ``launches_dense`` sum the three fused runs' greedy_sample
    launches (``launches_<model>`` each), its ``*_<model>`` keys each
    head's times and bound.
+16. Training: paper-lm-100m whole (12 layers at its published widths,
+   124,668,672 parameters read from the tree, seeded on the card), after
+   the dense models are freed. Its loss and every gradient leaf on the
+   card against the port on the CPU over the same weights and one seeded
+   batch (B = 1, S = 64; loss within 2e-3 relative, each leaf within 5e-2
+   relative L2, each printed); ``repro_torch.launch.train`` at the
+   reference driver's defaults (100 steps, batch 8, seq 256, lr 3e-4,
+   warm-up 20), whose loss must fall, with ms a step by wall clock and by
+   CUDA events, tokens/s, the bound of 6·N·tokens at the bf16 peak and
+   peak memory; one train step profiled (device ops, busy ms, the six
+   costliest kernels) and timed by CUDA events over 10 eager steps; 20
+   steps run straight twice (bit for bit), then under
+   ``TrainSupervisor(ckpt_every=8)`` with a fault before the first
+   checkpoint and one after it, whose final parameters and optimizer
+   state must equal the straight run's bit for bit (no process-wide
+   determinism switch is set); the last checkpoint restored into a fresh
+   tree (equal to the trained state bit for bit); greedy_sample at the
+   head's shapes, (4, 32000) and (1, 32000) bf16, as in 13; the serving
+   engine over the restored weights (4 requests of 16-32 seeded tokens,
+   16 new tokens) fused then host-sampled, with bit-identical streams and
+   greedy_sample once per fused decode launch, counted from 0 just before
+   the fused run and read just after. The record's ``launches_train`` are
+   this path's greedy_sample launches, its ``*_train`` keys the
+   (4, 32000) times and bound.
 
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
@@ -249,6 +273,13 @@ DENSE_ARCHS = (("phi4-mini-3.8b", "[phi4-mini]", (32, 3072, 8192, 200_064)),
                ("minitron-4b", "[minitron]", (32, 3072, 9216, 256_000)),
                ("qwen2.5-32b", "[qwen2.5-32b]", (64, 5120, 27648, 152_064)))
 DENSE_SEQUENTIAL_STEPS = 16
+# the [train] phase: paper-lm-100m whole, at python -m repro_torch.launch.train's defaults
+TRAIN_ARCH, TRAIN_V = "paper-lm-100m", 32_000
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 100, 8, 256
+TRAIN_CHECK = (1, 64)  # (B, S) of the card-against-CPU loss and gradients
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 2e-3, 5e-2  # card against the CPU port
+TRAIN_REPLAY = (20, 8, (3, 13))  # steps, checkpoint interval, the steps that fail
+TRAIN_REQUESTS, TRAIN_PROMPT, TRAIN_NEW = 4, (16, 33), 16
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
@@ -2370,6 +2401,215 @@ def phase_dense(smi: str) -> dict:
     return {"greedy_sample": total, "max_abs_err": worst, **out}
 
 
+def _grads(model, params: dict, batch: dict) -> tuple:
+    """The loss and every leaf's gradient, in ``tree.leaves`` order, by the
+    autograd of ``launch.steps.build_train_step``."""
+    from repro_torch.tree import leaves, unflatten
+
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    loss, _ = model.loss(unflatten(params, flat), batch)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def _card_against_cpu(model, params: dict) -> None:
+    """The loss and every gradient leaf on the card against the port on
+    the CPU over the same weights and one seeded batch (B = 1, S = 64):
+    the CPU side is the one the tests hold to JAX."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.dispatch.executor import flatten_with_path
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+
+    b, s = TRAIN_CHECK
+    batch = SyntheticLMDataset(model.cfg.vocab_size, s, b, seed=SEED + 21).batch(0)
+    card = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = _grads(model, params, card)
+    ti = time.perf_counter()
+    cpu_loss, cpu_grads = _grads(Model(model.cfg, device="cpu"),
+                                 tree_map(lambda p: p.cpu(), params), cpu)
+    seconds = time.perf_counter() - ti
+    rel = {path: float(torch.linalg.vector_norm(g.float().cpu() - c.float())
+                       / torch.linalg.vector_norm(c.float()))
+           for (path, _), g, c in zip(flatten_with_path(params), grads, cpu_grads)}
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    print(f"[train] card against the CPU port, B={b} S={s} (CPU side {seconds:.1f} s): loss "
+          f"{float(loss):.6f} vs {float(cpu_loss):.6f} (relative {loss_rel:.2e}, allowed "
+          f"{TRAIN_LOSS_RTOL}); gradient relative L2 per leaf (allowed {TRAIN_GRAD_REL_L2}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    if loss_rel > TRAIN_LOSS_RTOL or max(rel.values()) > TRAIN_GRAD_REL_L2 \
+            or not all(torch.isfinite(g).all() for g in grads):
+        raise SystemExit("the card's loss or gradients disagree with the CPU port's")
+
+
+def _replay(model, params: dict, ckpt_dir: str) -> tuple:
+    """20 train steps straight, twice (bit for bit), then under
+    ``TrainSupervisor(ckpt_every=8)`` with a fault before the first
+    checkpoint and one after it: the final parameters and optimizer state
+    must equal the straight run's bit for bit. Returns the straight run's
+    state."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW, CosineSchedule
+    from repro_torch.runtime import TrainSupervisor
+    from repro_torch.tree import leaves
+
+    steps, every, faults = TRAIN_REPLAY
+    opt = AdamW(schedule=CosineSchedule(warmup_steps=20, total_steps=TRAIN_STEPS))
+    train_step = build_train_step(model, opt)
+    ds = SyntheticLMDataset(model.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+
+    def step_fn(state, batch):
+        return train_step(*state, batch)[:2]
+
+    def batch_fn(i):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(i).items()}
+
+    def straight():
+        state = (params, opt.init(params))
+        for i in range(steps):
+            state = step_fn(state, batch_fn(i))
+        return state
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    first, second = straight(), straight()
+    twice = same(first, second)
+    print(f"[train] {steps} steps straight, twice: bit for bit {twice} "
+          f"({len(leaves(first))} leaves)")
+    if not twice:
+        raise SystemExit("two straight training runs on the card differ")
+    del second
+    armed = set(faults)
+
+    def fault_hook(step: int) -> None:
+        if step in armed:
+            armed.discard(step)
+            raise RuntimeError(f"simulated node failure at step {step}")
+
+    store = CheckpointStore(ckpt_dir)
+    sup = TrainSupervisor(step_fn, store, ckpt_every=every)
+    ti = time.perf_counter()
+    recovered = sup.run((params, opt.init(params)), batch_fn, steps, fault_hook=fault_hook)
+    exact = same(recovered, first)
+    print(f"[train] under TrainSupervisor(ckpt_every={every}) with faults at steps {faults} "
+          f"(before and after the first checkpoint): restarts={sup.restarts}, checkpoints "
+          f"{store.steps()}, {time.perf_counter() - ti:.1f} s; final parameters and optimizer "
+          f"state equal the straight run's bit for bit: {exact}")
+    if sup.restarts != len(faults) or not exact:
+        raise SystemExit("the supervisor's replay did not reproduce the straight run")
+    return first
+
+
+def phase_train(smi: str) -> dict:
+    """Training: paper-lm-100m whole and seeded on the card; its loss and
+    gradients against the port on the CPU; ``repro_torch.launch.train`` at
+    the reference driver's defaults (100 steps, batch 8, seq 256, lr 3e-4,
+    warm-up 20), timed, with one step profiled, its loss falling; a 20-step
+    replay under the supervisor with two faults, bit for bit the straight
+    run's; the last checkpoint restored into a fresh tree and served
+    through the engine, fused (greedy_sample counted from 0 just before)
+    and host-sampled, with bit-identical streams. Frees the model at the
+    end."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW, CosineSchedule
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(TRAIN_ARCH), remat="none")  # as the driver sets it
+    model, params, n, nbytes, found = _draw("[train]", cfg, (12, 768, 2048, TRAIN_V))
+    _card_against_cpu(model, params)
+
+    # the driver at the reference's defaults
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_driver.main(["--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall_ms = run.wall_s / TRAIN_STEPS * 1e3
+    event_ms = float(np.median(run.step_ms))
+    state_bytes = 2 * n + 3 * 4 * n  # bf16 parameters, f32 master, m and v
+    bound = _bound_ms(2 * state_bytes, 6.0 * n * tokens, BF16_FLOPS)
+    print(f"[train] driver at its defaults ({TRAIN_STEPS} steps, batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}): loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f}; {wall_ms:.3f} ms a "
+          f"step by wall clock ({tokens * TRAIN_STEPS / run.wall_s:.0f} tokens/s), "
+          f"{event_ms:.3f} ms median by CUDA events (min {min(run.step_ms):.3f}); bound "
+          f"{bound[0]:.4f} ms ({bound[1]}: 6 x {n} parameters x {tokens} tokens at "
+          f"{BF16_FLOPS:.3g} FLOP/s; the state read and written once {2 * state_bytes} B); "
+          f"wall = {wall_ms / bound[0]:.1f}x it; max_memory_allocated={peak} B ({smi})")
+    if not run.losses[-1] < run.losses[0]:
+        raise SystemExit("the driver's loss did not fall")
+
+    # one step of the driver's, profiled and timed by events over eager steps
+    opt = AdamW(schedule=CosineSchedule(warmup_steps=20, total_steps=TRAIN_STEPS))
+    step = build_train_step(model, opt)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch(0).items()}
+    state = (run.params, run.opt_state)
+    step(*state, batch)
+    steady_ms = _events_ms(lambda: step(*state, batch), 10)
+    prof = _profiled(lambda: [step(*state, batch) for _ in range(3)], 3, top=6)
+    print(f"[train] one train step at batch {TRAIN_BATCH}, seq {TRAIN_SEQ}: {prof['ops']:.1f} "
+          f"device ops, busy {prof['busy_ms']:.4f} ms (torch.profiler, mean of 3; "
+          f"{prof['busy_ms'] / bound[0]:.2f}x the bound), {steady_ms:.4f} ms by CUDA events "
+          f"around 10 eagerly issued steps (idle {1 - prof['busy_ms'] / steady_ms:.3f}) ({smi})")
+    print(f"[train] train step profile, most device time a step: {_top(prof)}")
+    del run, state, step, batch
+
+    # replay under the supervisor, then serve the last checkpoint
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        trained = _replay(model, params, ckpt_dir)
+        store = CheckpointStore(ckpt_dir)
+        last = store.latest_step()
+        fresh = model.init(SEED + 22)
+        restored = store.restore(last, (fresh, AdamW().init(fresh)))
+        exact = all(torch.equal(a, b) for a, b in zip(leaves(restored), leaves(trained)))
+        print(f"[train] checkpoint step {last} restored into a fresh tree: equal to the trained "
+              f"state bit for bit: {exact}; leaves on {restored[0]['embed'].device}")
+        if not exact or last != TRAIN_REPLAY[0]:
+            raise SystemExit("the restored checkpoint is not the trained state")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    served = restored[0]
+    del trained, restored, fresh, params
+    greedy = _head_greedy_check(smi, "[train]", TRAIN_V, SEED + 20)
+    reqs = _requests(cfg, TRAIN_REQUESTS, TRAIN_PROMPT)
+    _serve(model, served, reqs[:1], "fused", max_new=2, tag="[train]")  # warm-up, not counted
+    greedy_sample.launches = 0
+    fused = _serve(model, served, reqs, "fused", max_new=TRAIN_NEW, tag="[train]")
+    launches = greedy_sample.launches
+    print(f"[train] greedy_sample launches serving the trained weights, fused: {launches}; "
+          f"{fused['decode_launches']} fused decode launches")
+    if launches == 0 or launches != fused["decode_launches"]:
+        raise SystemExit("serving the trained model did not launch greedy_sample once per fused "
+                         "decode launch")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != TRAIN_NEW:
+            raise SystemExit(f"request {uid} finished with {len(fused['streams'][uid])} tokens")
+    host = _serve(model, served, reqs, "host", max_new=TRAIN_NEW, tag="[train]")
+    if host["streams"] != fused["streams"]:
+        raise SystemExit("the trained model's fused and host token streams differ")
+    print(f"[train] fused and host token streams of the trained weights are bit-identical; "
+          f"first stream {fused['streams'][0][:8]}")
+    del model, served
+    _free_model("[train]", found)
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": launches, **greedy}
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -2405,6 +2645,7 @@ def main() -> None:
     encdec = phase_encdec(smi)
     vlm = phase_vlm(smi)
     dense = phase_dense(smi)
+    train = phase_train(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
@@ -2416,12 +2657,14 @@ def main() -> None:
             record["launches_encdec"] = encdec.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], encdec.pop("max_abs_err"))
             record.update(encdec)  # the whisper head's shape: times, bound and cluster
-            for path in (vlm, dense):  # phi-3-vision's head, then the three dense heads
+            for path in (vlm, dense, train):  # phi-3-vision's head, the dense heads, training's
                 record["max_abs_err"] = max(record["max_abs_err"], path.pop("max_abs_err"))
             record["launches_vlm"] = vlm.pop("greedy_sample")
             record["launches_dense"] = dense.pop("greedy_sample")
+            record["launches_train"] = train.pop("greedy_sample")
             record.update(vlm)
             record.update(dense)
+            record.update(train)
         if record["name"] == "top_k":  # the MoE router's launches: this path's kernel now
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")

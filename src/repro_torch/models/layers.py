@@ -392,6 +392,8 @@ def _moe_route(params: dict, cfg: ModelConfig, xt: torch.Tensor):
     logits = (xt.double() @ params["router"].double()).float()  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = kernel_ops.top_k_op(probs, k)  # (T, k) f32, int32
+    if probs.requires_grad:  # the kernel's values carry no gradient; the same values gathered do
+        top_p = torch.gather(probs, -1, top_e.long())
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
     # load-balancing auxiliary loss (Switch-style)
     me = torch.mean(probs, dim=0)

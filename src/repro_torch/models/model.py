@@ -1,5 +1,5 @@
 """The model facade of the port: the dense, vision-language, MoE, RWKV-6
-and encoder-decoder families, for serving.
+and encoder-decoder families, for training and serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
 ``family`` ``"dense"``, ``"vlm"`` (the dense trunk; ``forward`` puts the
@@ -11,9 +11,10 @@ LayerNorm with bias) and ``"encdec"`` (whisper: a non-causal encoder over
 audio frames and a decoder with self- and cross-attention, sinusoidal
 positions, the GELU MLP, LayerNorm with bias): ``init`` draws seeded
 weights like the reference's ``Model.init`` (same tree, shapes, scales and
-dtypes; other random numbers), ``forward`` is the full-sequence path, and
-``init_cache`` / ``decode_step`` / ``decode_and_sample`` / ``prefill_chunk``
-are the serving path over a per-slot KV cache, or for ``ssm`` a recurrent
+dtypes; other random numbers), ``forward`` is the full-sequence path and
+``loss`` the training objective over it, and ``init_cache`` /
+``decode_step`` / ``decode_and_sample`` / ``prefill_chunk`` are the
+serving path over a per-slot KV cache, or for ``ssm`` a recurrent
 state with no position axis.
 
 Layouts follow the reference so tests compare like with like: parameters
@@ -54,6 +55,18 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _layers(tree: dict, n: int) -> list[dict]:
+    """Every layer's parameters, each leaf split by one ``torch.unbind``: the
+    same views as :func:`_layer`'s, for the full-sequence paths that
+    training differentiates. Under autograd one ``unbind``'s backward is a
+    single ``stack`` a leaf, where ``v[i]`` a layer builds a zero tensor the
+    size of the whole stack for each layer's gradient and sums ``n`` of
+    them."""
+    split = {k: _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 class Model:
@@ -176,8 +189,7 @@ class Model:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers):
-            lp = _layer(trunk, i)
+        for lp in _layers(trunk, cfg.n_layers):
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions)
             y, a = self._mlp(lp, x)
@@ -188,8 +200,7 @@ class Model:
 
     def _rwkv_trunk(self, trunk: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        for i in range(cfg.n_layers):
-            lp = _layer(trunk, i)
+        for lp in _layers(trunk, cfg.n_layers):
             x = x + L.rwkv_apply(lp["tm"], cfg, _norm(lp["tm_norm"], x, cfg.norm_eps))
             h = _norm(lp["cm_norm"], x, cfg.norm_eps)
             shifted = F.pad(h, (0, 0, 1, 0))[:, :-1]
@@ -204,8 +215,7 @@ class Model:
         cfg = self.cfg
         x = frames.to(L.COMPUTE_DTYPE)
         x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
-        for i in range(cfg.n_encoder_layers):
-            lp = _layer(params["enc_layers"], i)
+        for lp in _layers(params["enc_layers"], cfg.n_encoder_layers):
             x = x + L.attention_apply(lp["attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps), None,
                                       causal=False, use_rope=False)
             x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln2"], x, cfg.norm_eps))
@@ -238,8 +248,7 @@ class Model:
         enc = self.encode(params, batch["frontend_embeds"])
         x = params["embed"][batch["tokens"]]
         x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
-        for i in range(cfg.n_layers):
-            lp = _layer(params["dec_layers"], i)
+        for lp in _layers(params["dec_layers"], cfg.n_layers):
             x = x + L.attention_apply(lp["self_attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps),
                                       None, use_rope=False)
             x = x + L.attention_apply(lp["cross_attn"], cfg, _norm(lp["ln2"], x, cfg.norm_eps),
@@ -247,6 +256,26 @@ class Model:
             x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
         x = _norm(params["final_norm"], x, cfg.norm_eps)
         return x @ self._head(params), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy plus 1e-4 · mean(logz²) plus 0.01 · the
+        MoE aux loss: ``(total, {"ce", "zloss", "moe_aux"})``, each a 0-d
+        float32 tensor, as the reference's ``loss``. ``batch["labels"]``
+        (B, S) holds the gold ids. The logits are cast to float32 and logz
+        is a logsumexp over the vocabulary. The gold logit is gathered
+        (``take_along_dim``): the reference's masked sum over the
+        vocabulary, which keeps the vocabulary axis sharded under GSPMD,
+        adds ±0 to it everywhere else, so on finite logits the two are
+        equal, and the gather makes no (B, S, V) mask."""
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        ce = torch.mean(logz - gold)
+        zloss = 1e-4 * torch.mean(torch.square(logz))
+        total = ce + zloss + 0.01 * aux
+        return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
 
     def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer's MLP on ``x`` after its norm: (output, MoE aux loss or None)."""

@@ -6,7 +6,9 @@ the engine, each request over its own encoded window, and the driver refuses it 
 reference's does; the vision-language family through its prefixed forward and the engine;
 the other dense configurations through the driver), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
-import their modules lazily, so the run calls them)."""
+import their modules lazily, so the run calls them); and it trains through
+``python -m repro_torch.launch.train``, with and without checkpoints, with
+``ml_dtypes`` made unimportable too."""
 
 from __future__ import annotations
 
@@ -148,12 +150,40 @@ def test_port_calibrates_on_the_cpu_with_jax_and_repro_unimportable(tmp_path):
     assert "calibrated cpu" in out.stdout
 
 
+_TRAIN_WITHOUT_JAX = """
+import runpy, sys
+for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+    sys.modules[name] = None
+ckpt = sys.argv[1]
+for extra in ([], ["--ckpt-dir", ckpt, "--ckpt-every", "4"]):
+    sys.argv = ["train", "--device", "cpu", "--reduced", "--steps", "10", *extra]
+    runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+from repro_torch.checkpoint import CheckpointStore
+assert CheckpointStore(ckpt).steps() == [4, 8, 10], CheckpointStore(ckpt).steps()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("trained")
+"""
+
+
+def test_port_trains_on_the_cpu_with_jax_repro_and_ml_dtypes_unimportable(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT_JAX, str(tmp_path / "ckpt")],
+                         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("[train] arch=paper-lm-100m params=0.1M batch=8 seq=256") == 2
+    assert "[train] straggler events: " in out.stdout and "restarts: 0" in out.stdout
+    assert "trained" in out.stdout
+
+
 def test_no_source_imports_jax_or_repro():
-    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {"bridge/report.py", "bridge/descriptors.py", "cluster/router.py", "power/meter.py",
-            "core/interp.py"} <= {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
-                                  for f in files[:-1]}
+            "core/interp.py", "optim/adamw.py", "data/pipeline.py", "checkpoint/store.py",
+            "runtime/supervisor.py", "launch/steps.py", "launch/train.py", "tree.py"} <= {
+        f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in banned.finditer(f.read_text())]
     assert not offenders, offenders
