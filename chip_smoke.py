@@ -86,6 +86,28 @@ Phases, each printing its results; any failure exits non-zero:
    must hold for every tenant of the sticky arms, and greedy_sample must
    launch once per fused decode launch (counted from 0 for each arm); the
    record's ``launches_bridge`` sums the fused arms.
+10b. Doctor: the sticky affinity arm of 10 twice more, each under its own
+   ``repro_torch.obs.Tracer``, with serialized and with overlapped config
+   staging (``phase_doctor``). Each prints the card's wall, tokens/s
+   against the untraced arm's, host ms a launch outside the engines and
+   its greedy_sample launches, and the model's makespan, exposed config
+   cycles, bytes, tokens/kcycle, attribution residual, trace events and
+   live regime. Each arm's tokens must equal the standalone engines', its
+   attribution be conserved and its trace valid, greedy_sample launch once
+   per fused decode launch (counted from 0 just before each arm), and the
+   serialized arm's makespan, bytes and tokens/kcycle equal the untraced
+   affinity arm's. The traces go to ``doctor_traces/`` beside this script,
+   where ``python -m repro_torch.obs.doctor SERIALIZED --against
+   OVERLAPPED --json OUT`` runs in a subprocess (its transcript printed):
+   it must exit 0, give the live serialized report's regime and a diff
+   whose makespan delta is the two reports'. The directory is deleted at
+   the end. The record's ``launches_doctor`` are this phase's
+   greedy_sample launches.
+10c. Compiler: ``evaluate_levels`` of the port's copy of the paper's
+   compiler over the OpenGeMM tiled matmul at K = 16-256 and the Gemmini
+   one at K = 16-512, each speedup and geomean printed (model cycles),
+   held to the paper's bands (OpenGeMM 1.7-2.6 with a maximum of at least
+   2.2, Gemmini 1.04-1.20).
 11. MoE: phi3.5-moe-42b-a6.6b at its published widths cut to 16 of its 32
    layers (42.14 GB of bf16 weights, seeded on the card; all 32 would not
    fit), after the qwen2-0.5b model is freed. top_k exactly against its
@@ -281,6 +303,7 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 2e-3, 5e-2  # card against the CPU port
 TRAIN_REPLAY = (20, 8, (3, 13))  # steps, checkpoint interval, the steps that fail
 TRAIN_REQUESTS, TRAIN_PROMPT, TRAIN_NEW = 4, (16, 33), 16
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
+DOCTOR_ARMS = ("serialized", "overlapped")  # config staging of the traced affinity arms
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
     ("round_robin", "round_robin", False, "fused", 8),
@@ -1338,13 +1361,33 @@ def _streams(tenants) -> dict:
     return {te.tenant: {r.uid: r.generated for r in te.engine.finished} for te in tenants}
 
 
-def phase_bridge(model, params, smi: str) -> int:
+def _timed_steps(tenants) -> list:
+    """Wraps each tenant's engine step to record (seconds, launches, prefill
+    launches) of every call; returns the list the calls append to."""
+    step_s = []
+
+    def timed(step):
+        def run():
+            ts = time.perf_counter()
+            produced, descs = step()
+            step_s.append((time.perf_counter() - ts, len(descs),
+                           sum("prefill_tokens" in d for d in descs)))
+            return produced, descs
+        return run
+
+    for te in tenants:
+        te.step = timed(te.step)
+    return step_s
+
+
+def phase_bridge(model, params, smi: str) -> tuple[int, dict, dict]:
     """The closed-loop serving bridge at the serving-bridge benchmark's
     cell shape: 6 tenants of full-width qwen2-0.5b on a cluster model of 2
     hosts with one OpenGeMM each over a NoC, in four arms. The card computes
     every token; the cycle model prices the same launch stream in OpenGeMM
     cycles. Returns greedy_sample's launches over the fused arms, counted
-    from 0 just before each arm and read just after."""
+    from 0 just before each arm and read just after; each arm's wall
+    seconds and cycle-model numbers; and the standalone engines' streams."""
     from repro_torch.bridge import ClosedLoopDriver
     from repro_torch.cluster import Cluster
     from repro_torch.kernels.sampling import greedy_sample
@@ -1369,22 +1412,10 @@ def phase_bridge(model, params, smi: str) -> int:
     if n_tok != BRIDGE_TENANTS * 3 * BRIDGE_MAX_NEW:
         raise SystemExit(f"standalone engines produced {n_tok} tokens")
 
-    fused_launches = 0
+    fused_launches, arms = 0, {}
     for arm, policy, sticky, sampling, chunk in BRIDGE_ARMS:
         tenants = _bridge_tenants(model, params, fns, sampling, chunk)
-        step_s = []  # (seconds, launches, prefill launches) of each engine step
-
-        def timed(step):
-            def run():
-                ts = time.perf_counter()
-                produced, descs = step()
-                step_s.append((time.perf_counter() - ts, len(descs),
-                               sum("prefill_tokens" in d for d in descs)))
-                return produced, descs
-            return run
-
-        for te in tenants:
-            te.step = timed(te.step)
+        step_s = _timed_steps(tenants)
         cluster = Cluster.uniform(BRIDGE_HOSTS, {"opengemm": 1}, policy=policy, sticky=sticky,
                                   link="noc", max_contexts=4)
         greedy_sample.launches = 0
@@ -1425,9 +1456,168 @@ def phase_bridge(model, params, smi: str) -> int:
                              f"{decodes} decode launches")
         if sampling == "fused":
             fused_launches += counted
+        arms[arm] = {"wall": wall, "makespan": rep.cluster.makespan,
+                     "bytes_sent": rep.cluster.bytes_sent,
+                     "bytes_elided": rep.cluster.bytes_elided,
+                     "tokens_per_kcycle": rep.tokens_per_kcycle}
     print("[bridge] every arm's token streams equal the standalone engines'; config parity "
           "matched in the sticky arms; greedy_sample once per fused decode launch")
-    return fused_launches
+    return fused_launches, arms, want
+
+
+def phase_doctor(model, params, smi: str, untraced: dict, want: dict) -> int:
+    """The config-wall doctor over the closed loop: the bridge's sticky
+    affinity arm (fused sampling, prefill chunk 8) twice more, each under
+    its own ``obs.Tracer``, with serialized and with overlapped config
+    staging. Each run's attribution must be conserved, its trace valid and
+    its tokens the standalone engines'; greedy_sample must launch once per
+    fused decode launch (counted from 0 just before each run), and the
+    serialized run's makespan, config bytes and tokens/kcycle must equal
+    the untraced affinity arm's (a tracer never moves the clock). The two
+    traces go to ``doctor_traces/`` beside this script, and ``python -m
+    repro_torch.obs.doctor SERIALIZED --against OVERLAPPED --json OUT``
+    runs on them in a subprocess: it must exit 0, give the live serialized
+    report's regime, and a diff whose makespan delta is the two reports'.
+    The directory is deleted at the end. Returns greedy_sample's launches
+    over both runs."""
+    import shutil
+
+    from repro_torch.bridge import ClosedLoopDriver
+    from repro_torch.cluster import Cluster
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.obs import Tracer, attribute, diagnose_report, validate_trace, write_trace
+    from repro_torch.serving import ServingEngine
+
+    fns = {"fused": ServingEngine.compile_decode(model, sampling="fused"),
+           "prefill": ServingEngine.compile_prefill(model)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "doctor_traces")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    base = untraced["affinity"]
+    reports, paths, launches = {}, {}, 0
+    try:
+        for overlap in DOCTOR_ARMS:
+            tenants = _bridge_tenants(model, params, fns, "fused", 8)
+            step_s = _timed_steps(tenants)
+            tracer = Tracer()
+            cluster = Cluster.uniform(BRIDGE_HOSTS, {"opengemm": 1}, policy="affinity",
+                                      sticky=True, link="noc", max_contexts=4, overlap=overlap,
+                                      tracer=tracer)
+            greedy_sample.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = ClosedLoopDriver(tenants, cluster).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counted = greedy_sample.launches
+            decodes = sum(s.launches - s.prefill_launches for s in rep.steps)
+            att = attribute(rep).check()
+            paths[overlap] = os.path.join(out_dir, f"TRACE_{overlap}.json")
+            doc = write_trace(tracer, paths[overlap], attribution=att, metrics=rep.metrics)
+            problems = validate_trace(doc)
+            live = diagnose_report(rep)
+            engine_s = sum(t for t, _, _ in step_s)
+            print(f"[doctor] arm={overlap} (traced; policy=affinity, sticky=True, sampling=fused, "
+                  f"prefill chunk 8), measured on the card: wall {wall:.3f} s, "
+                  f"{rep.tokens / wall:.2f} tokens/s, {wall / base['wall']:.3f}x the untraced "
+                  f"affinity arm's {base['wall']:.3f} s; host outside the engines (cycle model, "
+                  f"bridge and tracer) {(wall - engine_s) * 1e3 / rep.cluster.launches:.3f} ms a "
+                  f"launch; greedy_sample launches {counted} for {decodes} fused decode launches "
+                  f"({smi})")
+            print(f"[doctor] arm={overlap}, OpenGeMM cycle model (model cycles, not the card): "
+                  f"makespan {rep.cluster.makespan:.1f} cycles, exposed config "
+                  f"{rep.cluster.exposed_config_cycles:.1f} of {rep.cluster.config_cycles:.1f} "
+                  f"config cycles, config bytes sent {rep.cluster.bytes_sent} elided "
+                  f"{rep.cluster.bytes_elided}, tokens_per_kcycle={rep.tokens_per_kcycle:.6f}; "
+                  f"attribution conserved (max residual {att.max_residual:.3g} cycles over "
+                  f"{len(att.lanes)} lanes); {len(doc['traceEvents'])} trace events on "
+                  f"{len(tracer.lanes())} lanes, {len(problems)} schema problems; live regime "
+                  f"{live.regime.label}")
+            if _streams(tenants) != want:
+                raise SystemExit(f"doctor arm {overlap} gave other tokens than the standalone "
+                                 f"engines")
+            if counted != decodes or decodes == 0:
+                raise SystemExit(f"doctor arm {overlap} launched greedy_sample {counted} times "
+                                 f"for {decodes} fused decode launches")
+            if problems:
+                raise SystemExit(f"doctor arm {overlap}: invalid trace: {problems[:5]}")
+            reports[overlap] = (rep, live)
+            launches += counted
+        rep, live = reports["serialized"]
+        got = {"makespan": rep.cluster.makespan, "bytes_sent": rep.cluster.bytes_sent,
+               "bytes_elided": rep.cluster.bytes_elided,
+               "tokens_per_kcycle": rep.tokens_per_kcycle}
+        if got != {k: base[k] for k in got}:
+            raise SystemExit(f"the tracer moved the cycle model: traced serialized {got}, "
+                             f"untraced affinity {base}")
+        out = os.path.join(out_dir, "DOCTOR_serialized.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.doctor", paths["serialized"], "--against",
+             paths["overlapped"], "--json", out],
+            env={**os.environ, "PYTHONPATH": os.path.join(here, "src")}, cwd=here,
+            capture_output=True, text=True, timeout=300)
+        doctor_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[doctor] | {line}")
+        if proc.returncode != 0:
+            raise SystemExit(f"the doctor exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            payload = json.load(f)
+        diagnosis, delta = payload["diagnosis"], payload["diff"]["makespan"]["delta"]
+        top = diagnosis["recommendations"][0] if diagnosis["recommendations"] else None
+        want_delta = rep.cluster.makespan - reports["overlapped"][0].cluster.makespan
+        print(f"[doctor] python -m repro_torch.obs.doctor TRACE_serialized.json --against "
+              f"TRACE_overlapped.json: exit 0 in {doctor_s:.2f} s; regime "
+              f"{diagnosis['regime']['label']} (live serialized report: {live.regime.label}); "
+              f"exposed config {diagnosis['stats']['exposed_config']:.1f} model cycles; top "
+              f"recommendation "
+              + (f"{top['action']}, predicted saving {top['predicted_savings']:.1f} model cycles "
+                 f"({'an upper bound' if top['bound'] else 'a replay'})" if top else "none")
+              + f"; diff makespan delta {delta:+.1f} model cycles (the reports' "
+              f"{want_delta:+.1f})")
+        if diagnosis["regime"]["label"] != live.regime.label:
+            raise SystemExit(f"the doctor's regime {diagnosis['regime']['label']} is not the "
+                             f"live report's {live.regime.label}")
+        if delta != want_delta:
+            raise SystemExit(f"the diff's makespan delta {delta} is not the reports' {want_delta}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print("[doctor] both traced arms' token streams equal the standalone engines'; attribution "
+          "conserved; the serialized arm's model numbers equal the untraced arm's; the doctor "
+          "agrees with the live diagnosis")
+    return launches
+
+
+def phase_compiler() -> None:
+    """The paper's compiler through the port's copies: ``evaluate_levels``
+    over the OpenGeMM tiled matmul at K = 16-256 (all four levels) and the
+    Gemmini one at K = 16-512 (baseline and dedup), each geomean held to
+    ``tests/test_paper_claims.py``'s bands. The cycle model's numbers, not
+    the card's."""
+    from repro_torch.core import accelerators, evaluate_levels, geomean, matmul_driver, speedup
+
+    t0 = time.perf_counter()
+    sweeps = {"opengemm": ((16, 32, 64, 128, 256), "both", ("baseline", "dedup", "overlap",
+                                                            "both")),
+              "gemmini": ((16, 32, 64, 128, 256, 512), "dedup", ("baseline", "dedup"))}
+    means = {}
+    for kind, (sizes, level, levels) in sweeps.items():
+        models = {kind: getattr(accelerators, f"{kind}_like")()}
+        build = getattr(matmul_driver, f"{kind}_tiled_matmul")
+        sp = [speedup(evaluate_levels(lambda k=k: build(k), models, levels=levels), level)
+              for k in sizes]
+        means[kind] = (geomean(sp), max(sp))
+        print(f"[compiler] {kind}: speedup of '{level}' over 'baseline' (model cycles) by K "
+              + ", ".join(f"{k}: {x:.4f}" for k, x in zip(sizes, sp))
+              + f"; geomean {means[kind][0]:.4f}, max {means[kind][1]:.4f}")
+    print(f"[compiler] evaluated in {time.perf_counter() - t0:.2f} s on the host")
+    og, gem = means["opengemm"], means["gemmini"]
+    if not (1.7 <= og[0] <= 2.6 and og[1] >= 2.2):
+        raise SystemExit(f"OpenGeMM geomean {og[0]} (max {og[1]}) outside the paper's band")
+    if not 1.04 <= gem[0] <= 1.20:
+        raise SystemExit(f"Gemmini geomean {gem[0]} outside the paper's band")
 
 
 def _moe_router_check(smi: str) -> dict:
@@ -2637,7 +2827,9 @@ def main() -> None:
     print(f"[calibrate] greedy_sample launches on the calibration path: "
           f"{calibration['greedy_sample']} (the record's count is the serving path's)")
     launches.update(phase_ops_path(model, params))
-    bridge_launches = phase_bridge(model, params, smi)
+    bridge_launches, bridge_arms, bridge_streams = phase_bridge(model, params, smi)
+    doctor_launches = phase_doctor(model, params, smi, bridge_arms, bridge_streams)
+    phase_compiler()
     del model, params
     torch.cuda.empty_cache()
     moe = phase_moe(smi)
@@ -2650,6 +2842,7 @@ def main() -> None:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
             record["launches_bridge"] = bridge_launches
+            record["launches_doctor"] = doctor_launches
             record["launches_moe"] = moe.pop("greedy_sample")
             record["launches_ssm"] = ssm.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], ssm.pop("max_abs_err"))

@@ -19,6 +19,9 @@ restores in the other bit for bit:
   follows cannot change what the thread writes.
 * **Integrity** — restore checks every file's CRC before handing the tree
   back.
+* **Leaves** are tensors or numpy arrays (``fabric.ContextStore`` saves
+  its snapshots as ``uint8`` arrays, as it does through the reference's
+  store).
 * **Placement on restore** — each leaf goes to the device of its leaf in
   ``like_tree``, or to the device named for it in ``devices``: the
   one-device counterpart of the reference's ``shardings``. Resharding
@@ -37,9 +40,13 @@ import numpy as np
 import torch
 
 
-def _to_host(x: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A copy of ``x`` on the host as (array, numpy dtype name); bf16 as its
-    16-bit pattern, which numpy has no dtype for."""
+def _to_host(x: torch.Tensor | np.ndarray) -> tuple[np.ndarray, str]:
+    """A copy of ``x`` (a tensor or a numpy array) on the host as (array,
+    numpy dtype name); a bf16 tensor as its 16-bit pattern, which numpy has
+    no dtype for."""
+    if isinstance(x, np.ndarray):
+        arr = np.array(x, copy=True)
+        return arr, arr.dtype.name
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy(), "bfloat16"
@@ -163,7 +170,9 @@ class CheckpointStore:
     def restore(self, step: int, like_tree, devices=None):
         """Restore into the structure of ``like_tree``, each leaf on the device
         of its ``like_tree`` leaf, or on the one ``devices`` (a tree of
-        devices, ``None`` where the like leaf's device stands) names."""
+        devices, ``None`` where the like leaf's device stands) names. A
+        numpy leaf of ``like_tree`` comes back as a numpy array on the host
+        (``fabric.ContextStore`` restores its ``uint8`` snapshots so)."""
         base = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(base, "manifest.json")) as f:
             manifest = json.load(f)
@@ -177,6 +186,10 @@ class CheckpointStore:
                 crc = zlib.crc32(f.read())
             if crc != meta["crc32"]:
                 raise IOError(f"checkpoint corruption: CRC mismatch for {key}")
-            arr = _from_host(np.load(path), meta["dtype"], meta["shape"])
-            leaves[key] = arr.to(flat_dev.get(key, like.device))
+            raw = np.load(path)
+            if isinstance(like, np.ndarray):
+                leaves[key] = raw.view(np.dtype(meta["dtype"])).reshape(meta["shape"])
+            else:
+                arr = _from_host(raw, meta["dtype"], meta["shape"])
+                leaves[key] = arr.to(flat_dev.get(key, like.device))
         return _rebuild(like_tree, leaves)

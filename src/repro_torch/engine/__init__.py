@@ -1,12 +1,15 @@
 """The port's engine layer: the host/wire/compute resources one scheduler
 dispatches onto (:mod:`~repro_torch.engine.resources`), the serialized vs.
 overlapped staging policy (:mod:`~repro_torch.engine.overlap`), the
-calibrated compute model (:mod:`~repro_torch.engine.costmodel`), all copies
-of the JAX package's, and the calibration harness that fits the compute
+calibrated compute model (:mod:`~repro_torch.engine.costmodel`), the knob
+tuner that picks ``overlap`` and ``staging_buffers`` from the predicted
+wire/compute ratio (:mod:`~repro_torch.engine.autotune`), all copies of
+the JAX package's, and the calibration harness that fits the compute
 model against the port's kernels on the card
 (``python -m repro_torch.engine.calibrate``)."""
 
-from . import costmodel, overlap, resources
+from . import autotune, costmodel, overlap, resources
+from .autotune import TunedKnobs, tune, tune_from_ratio
 from .costmodel import (
     CALIBRATION_PATH,
     COMPUTE_MODES,
@@ -40,6 +43,8 @@ __all__ = [
     "OverlapPolicy",
     "Resource",
     "StagePlan",
+    "TunedKnobs",
+    "autotune",
     "costmodel",
     "fit_overhead",
     "load_fits",
@@ -49,4 +54,6 @@ __all__ = [
     "resolve_compute_model",
     "resources",
     "save_fits",
+    "tune",
+    "tune_from_ratio",
 ]

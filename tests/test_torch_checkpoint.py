@@ -7,7 +7,9 @@ either package restores in the other bit for bit (bf16, int32 and a
 writes the reference's bytes, file for file. The reference's checkpoint
 and substrate tests have counterparts here: CRC rejection on restore,
 async save and gc, ``keys``, placement on a device, the supervisor's
-replay and the straggler monitor. The supervisor replays exactly after a
+replay and the straggler monitor. ``fabric.ContextStore`` persists its
+numpy ``uint8`` snapshots through the port's store in the same format,
+across the packages in both directions. The supervisor replays exactly after a
 fault that follows a checkpoint, and, the port's choice, after one that
 comes before the first checkpoint, where the reference replays on the
 state it had already advanced (pinned here too).
@@ -180,6 +182,101 @@ def test_the_port_writes_the_references_bytes(tmp_path, state_pair):
     assert names == sorted(os.listdir(tdir)) and len(names) == len(jax.tree.leaves(jstate)) + 1
     for name in names:
         assert (jdir / name).read_bytes() == (tdir / name).read_bytes(), name
+
+
+def test_numpy_leaves_save_in_the_references_bytes_and_restore_on_the_host(tmp_path):
+    """A tree of numpy arrays saves as the reference's store saves it, byte
+    for byte; restored into numpy templates it comes back as numpy arrays,
+    into tensor templates as tensors."""
+    tree = {"ctx": {"t0": np.frombuffer(b"\x01\x02\x03\xff", np.uint8).copy(),
+                    "t1": np.arange(6, dtype=np.int32).reshape(2, 3)}}
+    JaxStore(str(tmp_path / "jax")).save(3, tree)
+    CheckpointStore(str(tmp_path / "port")).save(3, tree)
+    jdir, tdir = tmp_path / "jax" / "step_3", tmp_path / "port" / "step_3"
+    names = sorted(os.listdir(jdir))
+    assert names == sorted(os.listdir(tdir)) and len(names) == 3
+    for name in names:
+        assert (jdir / name).read_bytes() == (tdir / name).read_bytes(), name
+    store = CheckpointStore(str(tmp_path / "jax"))
+    like = {"ctx": {"t0": np.zeros(0, np.uint8), "t1": np.zeros(0, np.int32)}}
+    out = store.restore(3, like)
+    for key in ("t0", "t1"):
+        assert isinstance(out["ctx"][key], np.ndarray)
+        np.testing.assert_array_equal(out["ctx"][key], tree["ctx"][key])
+    as_tensors = store.restore(3, {"ctx": {"t0": torch.zeros(0, dtype=torch.uint8),
+                                           "t1": torch.zeros(0, dtype=torch.int32)}})
+    assert torch.equal(as_tensors["ctx"]["t1"], torch.from_numpy(tree["ctx"]["t1"]))
+
+
+def _warm_host(cluster, fabric_req, tenant: str, n_static: int = 32):
+    """A host whose gemmini device holds ``tenant``'s big context, as
+    ``tests/test_fabric.py`` warms one."""
+    host = cluster.Host.from_registry("h0", {"gemmini": 1, "opengemm": 1}, link="noc")
+    for i in range(3):
+        extra = {f"w{j}": 7 * j for j in range(n_static)}
+        extra["A"] = 0x1000 + 64 * i
+        host.dispatch(fabric_req(tenant, (8, 16, 16), extra, accel="gemmini"))
+    return host
+
+
+def _snapshots(side: str) -> list:
+    if side == "jax":
+        import repro.cluster as cluster
+        from repro.fabric import capture_contexts
+        from repro.sched import LaunchRequest
+    else:
+        import repro_torch.cluster as cluster
+        from repro_torch.fabric import capture_contexts
+        from repro_torch.sched import LaunchRequest
+    snaps = []
+    for tenant in ("t0", "t1"):
+        snaps += capture_contexts(_warm_host(cluster, LaunchRequest, tenant))
+    return snaps
+
+
+def test_context_store_roundtrips_through_the_ports_store(tmp_path):
+    """``fabric.ContextStore`` persists through the port's store, and a
+    fresh host restored from it dispatches warm."""
+    import repro_torch.cluster as cluster
+    from repro_torch.fabric import ContextStore, install_contexts
+    from repro_torch.sched import LaunchRequest
+
+    snaps = _snapshots("port")
+    assert [s.tenant for s in snaps] == ["t0", "t1"]
+    ContextStore(str(tmp_path)).save(1, snaps)
+    restored = ContextStore(str(tmp_path)).restore()
+    assert restored == {s.tenant: s for s in snaps}
+    assert ContextStore(str(tmp_path / "empty")).restore() == {}
+    host = cluster.Host.from_registry("h0", {"gemmini": 1, "opengemm": 1}, link="noc")
+    assert install_contexts(host, [restored["t0"]]) == 1
+    extra = {f"w{j}": 7 * j for j in range(32)}
+    extra["A"] = 0x2000
+    host.dispatch(LaunchRequest("t0", (8, 16, 16), extra, accel="gemmini"))
+    gem = host.sched.devices[0]
+    assert gem.cache.stats.hits == 1 and gem.cache.stats.misses == 0
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_a_context_saved_by_one_package_restores_in_the_other(tmp_path, writer, reader):
+    """Contexts saved by either package's ``ContextStore`` restore through
+    the other's to the same snapshots (compared as their CRC-guarded wire
+    bytes), and both write the same files for the same contexts."""
+    from repro.fabric import ContextStore as JaxContextStore
+    from repro_torch.fabric import ContextStore as PortContextStore
+
+    stores = {"jax": JaxContextStore, "port": PortContextStore}
+    snaps = _snapshots(writer)
+    stores[writer](str(tmp_path / writer)).save(2, snaps)
+    restored = stores[reader](str(tmp_path / writer)).restore()
+    assert {t: s.to_bytes() for t, s in restored.items()} == \
+        {s.tenant: s.to_bytes() for s in snaps}
+    assert type(restored["t0"]).__module__.startswith("repro_torch" if reader == "port" else "repro.")
+    stores[reader](str(tmp_path / reader)).save(2, _snapshots(reader))
+    names = sorted(os.listdir(tmp_path / writer / "step_2"))
+    assert names == sorted(os.listdir(tmp_path / reader / "step_2")) and len(names) == 3
+    for name in names:
+        assert (tmp_path / writer / "step_2" / name).read_bytes() == \
+            (tmp_path / reader / "step_2" / name).read_bytes(), name
 
 
 # ------------------------------------------------------------- supervisor

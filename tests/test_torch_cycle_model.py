@@ -49,21 +49,38 @@ COPIED = [
     "sched/queue", "sched/telemetry", "sched/scheduler",
     "cluster/traffic", "cluster/slo", "cluster/host", "cluster/router",
     "bridge/driver", "bridge/report", "bridge/tenant",
+    "core/builder", "core/passes/canonicalize", "core/passes/state_tracing",
+    "core/passes/licm", "core/passes/dedup", "core/passes/overlap", "core/passes/__init__",
+    "core/lowering", "core/matmul_driver", "core/evaluate", "core/timeline",
+    "obs/trace", "obs/export", "obs/whatif", "obs/diagnose", "obs/diff", "obs/doctor",
+    "engine/autotune", "fabric/snapshot", "fabric/migrate", "cluster/shed", "cluster/powercap",
 ]
+
+# The packages whose ``__init__`` re-exports every name of the reference's.
+PACKAGES = ["core", "core/passes", "obs", "engine", "fabric", "cluster"]
 
 
 # ------------------------------------------------------------ the copies
 
 
 class _Normalise(ast.NodeTransformer):
-    """Drops docstrings and reads an absolute ``repro`` import as
-    ``repro_torch``."""
+    """Drops docstrings, reads an absolute ``repro`` import as
+    ``repro_torch``, and reads ``python -m repro.`` as ``python -m
+    repro_torch.`` in a string constant (a command line a module prints
+    names its own package)."""
+
+    COMMAND = "python -m repro."
 
     @staticmethod
     def _rename(name: str | None) -> str | None:
         if name == "repro" or (name or "").startswith("repro."):
             return "repro_torch" + name[len("repro"):]
         return name
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = node.value.replace(self.COMMAND, "python -m repro_torch.")
+        return node
 
     def _strip(self, node):
         self.generic_visit(node)
@@ -93,6 +110,42 @@ def _code(path: Path) -> str:
 @pytest.mark.parametrize("module", COPIED)
 def test_copy_has_the_reference_code(module):
     assert _code(SRC / "repro_torch" / f"{module}.py") == _code(SRC / "repro" / f"{module}.py")
+
+
+def test_the_normaliser_reads_only_the_command_line_rule():
+    """Two modules that differ only in the package a printed command names
+    normalise equal; any other difference in a string constant, or a
+    command naming a third package, still tells them apart."""
+    def code(src: str) -> str:
+        return ast.dump(_Normalise().visit(ast.parse(src)))
+
+    ref = 'def main():\n    """python -m repro.x"""\n    return f(prog="python -m repro.obs.doctor")\n'
+    assert code(ref) == code(ref.replace('"python -m repro.obs', '"python -m repro_torch.obs'))
+    assert code(ref) != code(ref.replace('"python -m repro.obs', '"python -m other.obs'))
+    assert code(ref) != code(ref.replace("obs.doctor", "obs.diff"))
+    assert code("x = 'repro.obs.doctor'") != code("x = 'repro_torch.obs.doctor'")
+
+
+def _exported(package: str, root: str) -> list[str]:
+    """The names ``package``'s ``__init__`` lists in ``__all__``, read from
+    its source."""
+    tree = ast.parse((SRC / root / package / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", "") == "__all__"
+                                                 for t in node.targets):
+            return ast.literal_eval(node.value)
+    return []
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_the_port_exports_every_name_the_reference_exports(package):
+    import importlib
+
+    want = _exported(package, "repro")
+    assert want
+    assert set(want) <= set(_exported(package, "repro_torch"))
+    module = importlib.import_module("repro_torch." + package.replace("/", "."))
+    assert all(hasattr(module, name) for name in want)
 
 
 def _relative_imports(module: str) -> set[str]:
@@ -131,7 +184,8 @@ def test_every_module_the_copies_reach_is_in_the_port():
     missing = sorted(m for m in seen if not (SRC / "repro_torch" / f"{m}.py").exists())
     assert not missing, missing
     assert {"core/accelerators", "engine/costmodel", "sched/state_cache",
-            "power/meter", "core/roofline"} <= seen
+            "power/meter", "core/roofline", "checkpoint/store", "obs/attribution",
+            "fabric/link"} <= seen
 
 
 # ------------------------------------------------------------- plain data

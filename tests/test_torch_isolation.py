@@ -6,9 +6,11 @@ the engine, each request over its own encoded window, and the driver refuses it 
 reference's does; the vision-language family through its prefixed forward and the engine;
 the other dense configurations through the driver), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
-import their modules lazily, so the run calls them); and it trains through
+import their modules lazily, so the run calls them); it trains through
 ``python -m repro_torch.launch.train``, with and without checkpoints, with
-``ml_dtypes`` made unimportable too."""
+``ml_dtypes`` made unimportable too; and its copy of the compiler evaluates
+and ``python -m repro_torch.obs.doctor`` diagnoses traced bridge runs with
+the same three unimportable."""
 
 from __future__ import annotations
 
@@ -177,12 +179,81 @@ def test_port_trains_on_the_cpu_with_jax_repro_and_ml_dtypes_unimportable(tmp_pa
     assert "trained" in out.stdout
 
 
+_DOCTOR_WITHOUT_JAX = """
+import json, runpy, sys
+for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+    sys.modules[name] = None
+out = sys.argv[1]
+import repro_torch.cluster.powercap, repro_torch.core.passes, repro_torch.fabric.migrate
+import repro_torch.obs.doctor
+from repro_torch.core import accelerators, evaluate_levels, matmul_driver, speedup
+r = evaluate_levels(lambda: matmul_driver.opengemm_tiled_matmul(64),
+                    {"opengemm": accelerators.opengemm_like()})
+assert speedup(r, "both") > 1.5, speedup(r, "both")
+import dataclasses
+from repro_torch.bridge import ClosedLoopDriver, TenantEngine
+from repro_torch.cluster import Cluster, Host
+from repro_torch.configs import get
+from repro_torch.fabric import ContextStore, capture_contexts
+from repro_torch.models.model import Model
+from repro_torch.obs import Tracer, attribute, write_trace
+from repro_torch.sched import LaunchRequest
+from repro_torch.serving import Request, ServingEngine
+model = Model(dataclasses.replace(get("qwen2-0.5b").reduced(), remat="none"), device="cpu")
+params = model.init(0)
+paths = []
+for overlap in ("serialized", "overlapped"):
+    tenants = []
+    for i in range(2):
+        e = ServingEngine(model, params, max_slots=4, max_len=32, prefill_chunk=2)
+        e.submit(Request(uid=0, prompt=[3 + i, 5, 2], max_new_tokens=3))
+        tenants.append(TenantEngine(f"t{i}", e, accel="opengemm"))
+    tracer = Tracer()
+    rep = ClosedLoopDriver(tenants, Cluster.uniform(2, {"opengemm": 1}, policy="affinity",
+                                                    sticky=True, link="noc", overlap=overlap,
+                                                    tracer=tracer)).run()
+    paths.append(f"{out}/{overlap}.json")
+    write_trace(tracer, paths[-1], attribution=attribute(rep).check(), metrics=rep.metrics)
+host = Host.from_registry("h0", {"gemmini": 1}, link="noc")
+host.dispatch(LaunchRequest("t0", (8, 16, 16), {"A": 1, "B": 2}, accel="gemmini"))
+ContextStore(f"{out}/ctx").save(1, capture_contexts(host))
+assert list(ContextStore(f"{out}/ctx").restore()) == ["t0"]
+sys.argv = ["doctor", paths[0], "--against", paths[1], "--json", f"{out}/doctor.json"]
+try:
+    runpy.run_module("repro_torch.obs.doctor", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+payload = json.load(open(f"{out}/doctor.json"))
+spans = [json.load(open(path))["attribution"]["makespan"] for path in paths]
+assert payload["diff"]["makespan"]["delta"] == spans[0] - spans[1], payload["diff"]["makespan"]
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("diagnosed", payload["diagnosis"]["regime"]["label"])
+"""
+
+
+def test_the_compiler_and_the_doctor_run_with_jax_repro_and_ml_dtypes_unimportable(tmp_path):
+    """The port's compiler evaluates, a traced closed-loop bridge run exports
+    two traces, ``fabric.ContextStore`` persists through the port's store,
+    and ``python -m repro_torch.obs.doctor`` diagnoses and diffs the traces,
+    all with JAX, the JAX package and ``ml_dtypes`` unimportable."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _DOCTOR_WITHOUT_JAX, str(tmp_path)],
+                         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "config-wall doctor" in out.stdout and "trace diff" in out.stdout
+    assert "diagnosed " in out.stdout
+
+
 def test_no_source_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {"bridge/report.py", "bridge/descriptors.py", "cluster/router.py", "power/meter.py",
             "core/interp.py", "optim/adamw.py", "data/pipeline.py", "checkpoint/store.py",
-            "runtime/supervisor.py", "launch/steps.py", "launch/train.py", "tree.py"} <= {
+            "runtime/supervisor.py", "launch/steps.py", "launch/train.py", "tree.py",
+            "obs/doctor.py", "core/passes/overlap.py", "fabric/migrate.py",
+            "cluster/powercap.py", "engine/autotune.py"} <= {
         f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in banned.finditer(f.read_text())]
