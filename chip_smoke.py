@@ -37,6 +37,27 @@ Phases, each printing its results; any failure exits non-zero:
    at fuse 1 (the sequential schedule); fused at fuse 8 must give the ids
    of the same schedule run eagerly; every mode must launch greedy_sample
    once per produced step, and fused must replay graphs.
+6b. int8 KV: the same weights with ``cache_quant="int8"``:
+   ``quantize_kv``/``dequantize_kv`` on the card bit for bit the CPU
+   port's on seeded (4, 1, 2, 64) rows with a zero head, a head under the
+   1e-8 scale floor and exact .5 ties; teacher-forced int8 decode against
+   bf16 decode (B = 2, S = 16) at test_serving.py's bounds (top-1 >= 0.95,
+   a flip where bf16's two logits lie within the position's largest
+   int8-bf16 difference counting as agreeing; rtol 0.2, atol 0.5), the
+   raw top-1 and each flip printed; one masked fused decode step under
+   ``set_sync_debug_mode("error")``, after which the masked row's ``k``,
+   ``v``, ``k_scale`` and ``v_scale`` must be bit-identical; the serving
+   engine (4 slots, prefill chunk 8; 4 requests of 16-32 seeded tokens, 16
+   new tokens) fused then host-sampled, bit-identical, with greedy_sample
+   once per fused decode launch (counted from 0 just before the fused run
+   and read just after); the serving loop's modes as in 6, the fused one
+   profiled and printed beside the bf16 fused step; the
+   cache's bytes under 0.65x bf16's. The record's ``launches_int8`` are
+   this engine run's greedy_sample launches.
+6c. Chunked attention: qwen2-0.5b's ``forward`` at B = 1, S = 4,096 with
+   ``attn_chunk`` 512 against 0, each timed by CUDA events with its peak
+   memory, held to each other at test_perf_features.py's tolerance (rtol
+   0.05, atol 0.1).
 7. Kernel check of matmul, configured_matmul, flash_attention and top_k,
    each against its plain version at its stated tolerance, at the
    calibration ladder's shapes, at qwen2-0.5b's widths and on adversarial
@@ -159,7 +180,9 @@ Phases, each printing its results; any failure exits non-zero:
    torch.argmax and its bound; the encoder over 4 seeded 30 s windows
    (1,500 frames each) timed by CUDA events beside its operations bound,
    with its peak memory, and profiled (its six costliest device operations
-   printed); the cross K/V of each window (each decoder layer's
+   printed); the encoder with ``attn_chunk`` 512 (chunks of 500 frames)
+   against 0, each timed with its peak memory, at test_decode_parity's
+   tolerance; the cross K/V of each window (each decoder layer's
    ``cross_attn.wk``/``wv`` of the encoder output); ``forward`` against
    teacher-forced ``decode_step`` as in 5 (B = 2, S = 16, at
    test_decode_parity's tolerances), over the cross K/V of the same frames; one decode step over the 4 windows whose logits must follow
@@ -209,8 +232,17 @@ Phases, each printing its results; any failure exits non-zero:
    ``launch.serve.serve`` at the command's defaults fused at fuse 8, with
    its ids equal to the same schedule run eagerly, and sequential at 16
    steps, each with greedy_sample once per produced step; the fused step
-   set beside the bound of reading the weights and the K/V rows once. The
-   record's ``launches_dense`` sum the three fused runs' greedy_sample
+   set beside the bound of reading the weights and the K/V rows once. Then
+   qwen2.5-32b over an int8 cache (``cache_quant="int8"``) of 24,576 rows
+   at B = 4, whose bf16 cache (25.77 GB) would not fit beside the weights:
+   the free memory and both caches' sizes printed, the serving loop fused
+   at fuse 8 with its ids equal to the eager schedule's and greedy_sample
+   once per produced step, its peak memory and fused step beside the
+   function's bound (the weights and the int8 cache once) and the
+   reference formulation's (the whole cache dequantized to bf16 besides),
+   then one eager decode step profiled (the six costliest device
+   operations).
+   The record's ``launches_dense`` sum the three fused runs' greedy_sample
    launches (``launches_<model>`` each), its ``*_<model>`` keys each
    head's times and bound.
 16. Training: paper-lm-100m whole (12 layers at its published widths,
@@ -218,7 +250,12 @@ Phases, each printing its results; any failure exits non-zero:
    the dense models are freed. Its loss and every gradient leaf on the
    card against the port on the CPU over the same weights and one seeded
    batch (B = 1, S = 64; loss within 2e-3 relative, each leaf within 5e-2
-   relative L2, each printed); ``repro_torch.launch.train`` at the
+   relative L2, each printed); one train step at B = 8, S = 1,024 for each
+   ``remat`` (none, dots, full) and ``attn_chunk`` (0, 512) after a
+   warm-up, with its CUDA-event ms and peak memory, the losses equal
+   across remat settings and the gradients bit for bit ``none``'s where two
+   ``none`` steps are (else within twice their distance);
+   ``repro_torch.launch.train`` at the
    reference driver's defaults (100 steps, batch 8, seq 256, lr 3e-4,
    warm-up 20), whose loss must fall, with ms a step by wall clock and by
    CUDA events, tokens/s, the bound of 6·N·tokens at the bf16 peak and
@@ -303,6 +340,18 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 2e-3, 5e-2  # card against the CPU port
 TRAIN_REPLAY = (20, 8, (3, 13))  # steps, checkpoint interval, the steps that fail
 TRAIN_REQUESTS, TRAIN_PROMPT, TRAIN_NEW = 4, (16, 33), 16
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
+# the [int8-kv] phase: tests/test_serving.py's int8-against-bf16 decode bounds and bytes ratio
+INT8_TOP1, INT8_RTOL, INT8_ATOL, INT8_BYTES = 0.95, 0.2, 0.5, 0.65
+INT8_REQUESTS, INT8_PROMPT, INT8_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
+TIES = (127.0, -127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 125.5, -126.5)  # at a scale of 1
+TIES_ROUNDED = [127, -127, 0, 2, 2, 0, -2, -2, 126, -126]  # half to even
+# chunked attention: dryrun.optimized_policy's attn_chunk, the forward's length, and
+# test_perf_features.py's chunked-against-plain tolerance
+CHUNK, CHUNK_SEQ, CHUNK_RTOL, CHUNK_ATOL = 512, 4096, 0.05, 0.1
+# qwen2.5-32b at an int8 cache of this many rows a slot (B = 4): its bf16 cache would not fit
+QWEN32_INT8_ROWS = 24_576
+# the [train] phase's remat table: B, S, and the settings
+REMAT_BATCH, REMAT_SEQ, REMATS = 8, 1024, ("none", "dots", "full")
 DOCTOR_ARMS = ("serialized", "overlapped")  # config staging of the traced affinity arms
 BRIDGE_ARMS = (  # (arm, router policy, sticky, sampling, prefill chunk)
     ("affinity", "affinity", True, "fused", 8),
@@ -1225,6 +1274,180 @@ def phase_serve_modes(model, params, smi: str, steps: int = SERVE_STEPS,
               f"{1 - prof['busy_ms'] / step_ms:.3f} of it ({smi})")
         out[label].update(prof, idle=1 - prof["busy_ms"] / step_ms)
     return out
+
+
+def _kv_rows_with_ties() -> torch.Tensor:
+    """Seeded (4, 1, 2, 64) bf16 K/V rows: normal values, an all-zero head,
+    a head far under the scale's 1e-8 floor, and a head of exact .5 ties at
+    a scale of 1 (``TIES``, then zeros)."""
+    gen = torch.Generator().manual_seed(SEED + 30)
+    x = 3 * torch.randn((4, 1, 2, 64), generator=gen)
+    x[0, 0, 0] = 0.0
+    x[0, 0, 1] = 1e-12 * torch.randn(64, generator=gen)
+    x[1, 0, 1] = 0.0
+    x[1, 0, 1, :len(TIES)] = torch.tensor(TIES)
+    return x.to(torch.bfloat16)
+
+
+def _cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in cache.values())
+
+
+def phase_int8_kv(model, params, smi: str, bf16_modes: dict) -> int:
+    """The int8 KV cache (``cache_quant="int8"``) on full-width qwen2-0.5b,
+    over the same weights: ``quantize_kv``/``dequantize_kv`` on the card
+    bit for bit the CPU port's; teacher-forced int8 decode against bf16
+    decode at test_serving.py's bounds; one masked fused step under
+    ``set_sync_debug_mode("error")``, the masked row's four leaves
+    bit-identical after it; the serving engine fused and host-sampled,
+    bit-identical, with greedy_sample counted from 0 just before the fused
+    run and read just after; the serving loop's modes as in 6, the fused
+    one profiled beside the bf16 fused step (``bf16_modes``); the cache's
+    bytes against bf16's. Returns the fused engine run's greedy_sample
+    launches."""
+    import dataclasses
+
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    x = _kv_rows_with_ties()
+    q, scale = L.quantize_kv(x)
+    cq, cscale = L.quantize_kv(x.cuda())
+    exact = (torch.equal(cq.cpu(), q) and torch.equal(cscale.cpu(), scale)
+             and torch.equal(L.dequantize_kv(cq, cscale).cpu(), L.dequantize_kv(q, scale)))
+    ties = cq[1, 0, 1, :len(TIES)].tolist()
+    print(f"[int8-kv] quantize_kv and dequantize_kv on the card against the CPU port, seeded "
+          f"{tuple(x.shape)} rows with a zero head, a head under the 1e-8 floor and .5 ties: bit "
+          f"for bit {exact}; ties {list(TIES)} -> {ties}")
+    if not exact or ties != TIES_ROUNDED:
+        raise SystemExit("quantize_kv on the card is not the CPU port's, or rounds ties otherwise")
+
+    qmodel = Model(dataclasses.replace(model.cfg, cache_quant="int8"), device="cuda")
+    b, s = 2, 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen, device="cuda")
+
+    def teacher_forced(m) -> np.ndarray:
+        cache, steps = m.init_cache(b, s), []
+        for i in range(s):
+            logits, cache = m.decode_step(params, cache, tokens[:, i:i + 1], i)
+            steps.append(logits[:, 0])
+        return torch.stack(steps, 1).float().cpu().numpy()
+
+    plain, quant = teacher_forced(model), teacher_forced(qmodel)
+    want, got = plain.argmax(-1), quant.argmax(-1)
+    top1 = float((want == got).mean())
+    # a flip is a knife edge where bf16's logits at the two ids lie closer than
+    # that position's largest int8-bf16 difference: test_serving.py's "legitimate"
+    # flip, which the random full-width model's flat logits meet often
+    flips = [(float(plain[i, j, want[i, j]] - plain[i, j, got[i, j]]),
+              float(np.abs(plain[i, j] - quant[i, j]).max()))
+             for i, j in zip(*np.nonzero(want != got))]
+    held = top1 + sum(gap <= moved for gap, moved in flips) / want.size
+    print(f"[int8-kv] teacher-forced decode B={b} S={s}, int8 against bf16: max_abs_diff="
+          f"{np.abs(plain - quant).max():.6f}, top1 agreement={top1:.4f}; flips (bf16's gap "
+          f"between the two ids, the position's largest difference): {flips}; top1 with "
+          f"knife-edge flips agreeing={held:.4f} (bounds: top-1 >= {INT8_TOP1}, rtol "
+          f"{INT8_RTOL}, atol {INT8_ATOL})")
+    np.testing.assert_allclose(quant, plain, rtol=INT8_RTOL, atol=INT8_ATOL)
+    if held < INT8_TOP1:
+        raise SystemExit(f"int8 decode's top-1 agreement {held} < {INT8_TOP1}")
+
+    # one masked fused step: slot 3 keeps all four leaves
+    cache = qmodel.init_cache(SERVE_BATCH, 64)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randint(-127, 128, cache[key].shape, generator=gen, device="cuda"))
+        cache[f"{key}_scale"].copy_(0.05 * torch.rand(cache[f"{key}_scale"].shape, generator=gen,
+                                                      device="cuda") + 1e-3)
+    before = {k: v.clone() for k, v in cache.items()}
+    addresses = {k: v.data_ptr() for k, v in cache.items()}
+    _masked_fused_step(qmodel, params, cache)
+    for k, v in cache.items():
+        if v.data_ptr() != addresses[k] or not torch.equal(v[:, 3], before[k][:, 3]):
+            raise SystemExit(f"the masked int8 fused step moved {k!r} or changed its masked row")
+        if torch.equal(v[:, 0], before[k][:, 0]):
+            raise SystemExit(f"the masked int8 fused step left a live row's {k!r} unchanged")
+    print(f"[int8-kv] one masked fused decode step under set_sync_debug_mode('error'): no "
+          f"read-back; the masked row's {sorted(cache)} bit-identical, every leaf at its "
+          f"address; the live rows' leaves changed")
+    del cache, before
+
+    reqs = _requests(model.cfg, INT8_REQUESTS, INT8_PROMPT)
+    _serve(qmodel, params, reqs[:1], "fused", max_new=2, tag="[int8-kv]")  # warm-up
+    greedy_sample.launches = 0
+    fused = _serve(qmodel, params, reqs, "fused", max_new=INT8_NEW, tag="[int8-kv]")
+    launches = greedy_sample.launches
+    print(f"[int8-kv] greedy_sample launches={launches}, fused decode "
+          f"launches={fused['decode_launches']}")
+    if launches == 0 or launches != fused["decode_launches"]:
+        raise SystemExit("the int8 engine did not launch greedy_sample once per fused decode "
+                         "launch")
+    host = _serve(qmodel, params, reqs, "host", max_new=INT8_NEW, tag="[int8-kv]")
+    if host["streams"] != fused["streams"] or any(len(g) != INT8_NEW
+                                                  for g in fused["streams"].values()):
+        raise SystemExit("int8 fused and host sampling gave different or short token streams")
+    print("[int8-kv] fused and host token streams are bit-identical")
+
+    modes = phase_serve_modes(qmodel, params, smi, tag="[int8-kv]", profiled=("fused",))
+    q8, bf = modes["fused"], bf16_modes["fused"]
+    full = _cache_bytes(model.init_cache(SERVE_BATCH, SERVE_CACHE))
+    small = _cache_bytes(qmodel.init_cache(SERVE_BATCH, SERVE_CACHE))
+    print(f"[int8-kv] fused step, int8 against bf16 (batch {SERVE_BATCH}, cache {SERVE_CACHE}): "
+          f"{q8['device_ms']:.4f} against {bf['device_ms']:.4f} device ms a step; busy "
+          f"{q8['busy_ms']:.4f} against {bf['busy_ms']:.4f} ms, {q8['ops']:.1f} against "
+          f"{bf['ops']:.1f} device ops a step; cache {small} B against {full} B = "
+          f"{small / full:.4f} (bound {INT8_BYTES}) ({smi})")
+    if small >= INT8_BYTES * full:
+        raise SystemExit(f"the int8 cache is {small / full:.3f} of bf16's")
+    print(f"[int8-kv] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _chunked_against_plain(tag: str, run_plain, run_chunked, rtol: float, atol: float,
+                           smi: str) -> None:
+    """Each pass warmed up, then timed by CUDA events (mean of 3) with its
+    peak memory over what was allocated before it; the chunked output held
+    to the plain one at (``rtol``, ``atol``) on the card."""
+    out = {}
+    for label, run in (("plain", run_plain), ("chunked", run_chunked)):
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _events_ms(run, 3)
+        out[label] = (ms, torch.cuda.max_memory_allocated() - base)
+    plain, chunked = run_plain().float(), run_chunked().float()
+    close = torch.isclose(chunked, plain, rtol=rtol, atol=atol)
+    top1 = float((plain.argmax(-1) == chunked.argmax(-1)).float().mean())
+    print(f"{tag} plain {out['plain'][0]:.4f} ms, peak {out['plain'][1]} B over what was "
+          f"allocated; chunked {out['chunked'][0]:.4f} ms, peak {out['chunked'][1]} B (CUDA "
+          f"events, mean of 3); chunked against plain: max_abs_diff "
+          f"{float((chunked - plain).abs().max()):.6f}, {float(close.float().mean()):.8f} of "
+          f"elements within rtol {rtol} atol {atol}, argmax agreement {top1:.4f} ({smi})")
+    if not bool(close.all()) or not bool(torch.isfinite(chunked).all()):
+        raise SystemExit(f"{tag} the chunked pass is not within tolerance of the plain one")
+
+
+def phase_chunked(model, params, smi: str) -> None:
+    """qwen2-0.5b's ``forward`` at B = 1, S = 4,096 with ``attn_chunk`` 512
+    against 0, at test_perf_features.py's tolerance, each timed with its
+    peak memory."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    chunked = Model(dataclasses.replace(model.cfg, attn_chunk=CHUNK), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (1, CHUNK_SEQ), generator=gen,
+                                     device="cuda")}
+    _chunked_against_plain(
+        f"[chunked] qwen2-0.5b forward B=1 S={CHUNK_SEQ}, attn_chunk {CHUNK} against 0:",
+        lambda: model.forward(params, batch)[0], lambda: chunked.forward(params, batch)[0],
+        CHUNK_RTOL, CHUNK_ATOL, smi)
 
 
 def phase_calibrate(smi: str) -> dict:
@@ -2173,8 +2396,11 @@ def phase_encdec(smi: str) -> dict:
     fused decode step profiled by operator and input shape beside its
     bound, with no copy of the cross K/V. Frees the model at the end, and
     checks that it is gone."""
+    import dataclasses
+
     from repro_torch.configs import get
     from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.models.layers import attention_chunk
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
@@ -2228,6 +2454,12 @@ def phase_encdec(smi: str) -> dict:
     if not finite or enc.shape != (b, t, d):
         raise SystemExit("the encoder or its cross K/V gave non-finite values or another shape")
     del enc
+    chunked = Model(dataclasses.replace(cfg, attn_chunk=CHUNK), device="cuda")
+    _chunked_against_plain(
+        f"[encdec] encoder B={b} T={t}, attn_chunk {CHUNK} (a chunk of "
+        f"{attention_chunk(t, CHUNK)} frames) against 0:", lambda: model.encode(params, frames),
+        lambda: chunked.encode(params, frames), PARITY_RTOL, PARITY_ATOL, smi)
+    del chunked
 
     def write_cross(cache: dict) -> None:
         cache["xk"].copy_(xk[:, :2])
@@ -2551,6 +2783,78 @@ def _serve_dense(model, params, smi: str, tag: str, bound: tuple) -> int:
     return runs["fused"][1]
 
 
+def _int8_long_cache(model, params, nbytes: dict, smi: str) -> int:
+    """qwen2.5-32b over an int8 cache of ``QWEN32_INT8_ROWS`` rows a slot at
+    B = 4, on the weights already on the card: the free memory and the two
+    caches' sizes printed; ``launch.serve.serve`` fused at fuse 8 (the
+    command's defaults but the cache), its ids equal to the same schedule
+    run eagerly, greedy_sample once per produced step, counted from 0 just
+    before; its peak memory and fused step beside the function's bound
+    (the weights and the int8 cache read once) and the reference
+    formulation's (besides, the whole cache dequantized to bf16, written
+    and read, a step); one eager decode step profiled. Returns the fused
+    run's greedy_sample launches."""
+    import dataclasses
+
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    cfg, rows, tag = model.cfg, QWEN32_INT8_ROWS, "[qwen2.5-32b]"
+    qmodel = Model(dataclasses.replace(cfg, cache_quant="int8"), device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    heads = SERVE_BATCH * rows * 2 * cfg.n_layers * cfg.n_kv_heads  # K and V heads cached
+    bf16, int8 = heads * cfg.head_dim_ * 2, heads * (cfg.head_dim_ + 2)
+    weights = sum(nbytes.values())
+    print(f"{tag} int8 KV at B={SERVE_BATCH} x {rows} rows: mem_get_info free {free} B of "
+          f"{total} B with the weights ({weights} B) on the card; a bf16 cache {bf16} B "
+          f"({bf16 / 1e9:.2f} GB, {'fits' if bf16 < free else 'does not fit'}), the int8 cache "
+          f"{int8} B ({int8 / 1e9:.2f} GB, {'fits' if int8 < free else 'does not fit'}); "
+          f"weights + int8 cache {(weights + int8) / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    greedy_sample.launches = 0
+    run = serve(qmodel, params, batch=SERVE_BATCH, steps=SERVE_STEPS, cache_len=rows,
+                mode="fused", fuse=SERVE_FUSE)
+    counted = greedy_sample.launches
+    peak = torch.cuda.max_memory_allocated()
+    if counted == 0 or run.sample_launches != run.produced or not run.graphs \
+            or not all(g.replays for g in run.graphs):
+        raise SystemExit(f"{tag} int8 fused serving launched greedy_sample "
+                         f"{run.sample_launches} times for {run.produced} steps, or replayed "
+                         f"no graph")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not torch.equal(run.ids, _eager_fused_ids(qmodel, params, SERVE_FUSE, cache_len=rows)):
+        raise SystemExit(f"{tag} int8 fused serving's graph replays differ from the same "
+                         f"schedule run eagerly")
+    step_ms = run.device_ms / run.produced
+    fn_bytes = _weight_bytes(model, nbytes, SERVE_BATCH) + int8
+    ops = 2.0 * SERVE_BATCH * weights / 2
+    bound, ref = _bound_ms(fn_bytes, ops, BF16_FLOPS), _bound_ms(fn_bytes + 2 * bf16, ops,
+                                                                 BF16_FLOPS)
+    print(f"{tag} int8 serve mode=fused batch={SERVE_BATCH} cache {rows} steps={run.produced}: "
+          f"ids equal the eager schedule's; {step_ms:.4f} device ms a fused step (CUDA events "
+          f"around the timed loop), {run.ms_per_step:.4f} ms by wall clock; greedy_sample "
+          f"launches {run.sample_launches} in the timed loop (counter {counted}); "
+          f"max_memory_allocated {peak} B ({peak / 1e9:.2f} GB) of {total} B; against the "
+          f"function's bound {bound[0]:.4f} ms ({fn_bytes} B: weights and the int8 cache once; "
+          f"{bound[1]}) = {step_ms / bound[0]:.2f}x, the reference formulation's {ref[0]:.4f} "
+          f"ms (besides, the whole cache in bf16 written and read, {2 * bf16} B) = "
+          f"{step_ms / ref[0]:.2f}x ({smi})")
+    # one eager decode step profiled: the fused step's kernels, a short trace
+    cache = qmodel.init_cache(SERVE_BATCH, rows)
+    ones = torch.ones((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SERVE_BATCH,), SERVE_STEPS, dtype=torch.int32, device="cuda")
+    qmodel.decode_step(params, cache, ones, pos)
+    prof = _profiled(lambda: qmodel.decode_step(params, cache, ones, pos), 1, top=6)
+    print(f"{tag} int8 profile, one eager decode step at position {SERVE_STEPS}: "
+          f"{prof['ops']:.1f} device ops, busy {prof['busy_ms']:.4f} ms; most device time: "
+          f"{_top(prof)}")
+    return counted
+
+
 def phase_dense(smi: str) -> dict:
     """The reference's other single-card dense configurations, whole and
     seeded, one after another: phi4-mini-3.8b (tied head, vocab 200,064),
@@ -2585,6 +2889,8 @@ def phase_dense(smi: str) -> dict:
         launches = _serve_dense(model, params, smi, tag, bound)
         out[f"launches_{tag.strip('[]')}"] = launches
         total += launches
+        if arch == "qwen2.5-32b":
+            out["launches_int8_qwen2.5-32b"] = _int8_long_cache(model, params, nbytes, smi)
         del model, params
         _free_model(tag, found)
         print(f"{tag} phase took {time.perf_counter() - t0:.1f} s")
@@ -2630,6 +2936,69 @@ def _card_against_cpu(model, params: dict) -> None:
     if loss_rel > TRAIN_LOSS_RTOL or max(rel.values()) > TRAIN_GRAD_REL_L2 \
             or not all(torch.isfinite(g).all() for g in grads):
         raise SystemExit("the card's loss or gradients disagree with the CPU port's")
+
+
+def _remat_table(cfg, params: dict, smi: str) -> None:
+    """One train step (``launch.steps.build_train_step``, AdamW) at B = 8,
+    S = 1,024 for each ``remat`` and ``attn_chunk`` of 0 and 512, after a
+    warm-up step of its own on an emptied allocator cache (so no timed step
+    pays for ``cudaMalloc``): CUDA-event ms and peak memory over what was
+    allocated before it. Within each ``attn_chunk`` the losses must be equal, and the
+    gradients the update receives bit for bit ``"none"``'s where two
+    ``"none"`` steps are bit for bit with each other, else within twice
+    their distance."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    class Keep(AdamW):  # keeps the gradients the update receives
+        def update(self, params, grads, state):
+            self.grads = [g.detach() for g in leaves(grads)]
+            return super().update(params, grads, state)
+
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLMDataset(
+        cfg.vocab_size, REMAT_SEQ, REMAT_BATCH, seed=SEED + 23).batch(0).items()}
+    opt = Keep()
+    state = opt.init(params)
+    for chunk in (0, CHUNK):
+        steps = {}
+        for label in (*REMATS, "none again"):
+            model = Model(dataclasses.replace(cfg, remat=label.split()[0], attn_chunk=chunk),
+                          device="cuda")
+            step = build_train_step(model, opt)
+            torch.cuda.empty_cache()  # the warm-up then fills the allocator's cache
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(params, state, batch)[2]["loss"]
+            end.record()
+            end.synchronize()
+            steps[label] = (float(loss), opt.grads, start.elapsed_time(end),
+                            torch.cuda.max_memory_allocated() - base)
+
+        def distance(label: str) -> float:
+            return max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(steps[label][1], steps["none"][1]))
+
+        repeat = distance("none again")
+        print(f"[train] remat table, B={REMAT_BATCH} S={REMAT_SEQ} attn_chunk={chunk}, one train "
+              f"step by CUDA events after a warm-up: "
+              + "; ".join(f"{r} {steps[r][2]:.3f} ms, peak {steps[r][3]} B "
+                          f"({steps[r][3] / 1e9:.3f} GB), loss {steps[r][0]:.6f}, gradients "
+                          f"{distance(r)} max_abs_diff from none" for r in REMATS)
+              + f"; two none steps {repeat} apart ({smi})")
+        for remat in REMATS[1:]:
+            if steps[remat][0] != steps["none"][0] or distance(remat) > 2 * repeat:
+                raise SystemExit(f"remat={remat} at attn_chunk={chunk} changed the loss or the "
+                                 f"gradients of remat=none")
+        del steps
 
 
 def _replay(model, params: dict, ckpt_dir: str) -> tuple:
@@ -2720,6 +3089,7 @@ def phase_train(smi: str) -> dict:
     cfg = dataclasses.replace(get(TRAIN_ARCH), remat="none")  # as the driver sets it
     model, params, n, nbytes, found = _draw("[train]", cfg, (12, 768, 2048, TRAIN_V))
     _card_against_cpu(model, params)
+    _remat_table(cfg, params, smi)
 
     # the driver at the reference's defaults
     torch.cuda.synchronize()
@@ -2818,7 +3188,9 @@ def main() -> None:
     print(f"[model] qwen2-0.5b full width, seeded: {n_params} parameters")
     launches = phase_main_path(model, params)
     phase_numerics(model, params)
-    phase_serve_modes(model, params, smi)
+    bf16_modes = phase_serve_modes(model, params, smi)
+    int8_launches = phase_int8_kv(model, params, smi, bf16_modes)
+    phase_chunked(model, params, smi)
     records += [*check_matmul(smi), check_configured_matmul(smi), *check_flash_attention(smi),
                 check_top_k(smi)]
     calibration = phase_calibrate(smi)
@@ -2841,6 +3213,7 @@ def main() -> None:
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
+            record["launches_int8"] = int8_launches
             record["launches_bridge"] = bridge_launches
             record["launches_doctor"] = doctor_launches
             record["launches_moe"] = moe.pop("greedy_sample")

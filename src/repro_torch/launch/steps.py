@@ -26,11 +26,9 @@ def build_train_step(model: Model, optimizer: AdamW):
     update's ``grad_norm`` and ``lr``, each a 0-d tensor on the device (no
     read-back). With ``grad_compression == "bf16"`` the gradients are cast
     to bf16 before the update, as the reference casts them for its
-    cross-data reduction."""
-    if model.cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={model.cfg.remat!r} is not ported (it changes memory, not numbers): "
-            f"ROADMAP.md, Queue 1, \"Training\"; set remat=\"none\"")
+    cross-data reduction. ``cfg.remat`` (``"none"``, ``"dots"`` or
+    ``"full"``) checkpoints each layer of the forward (``models.model``'s
+    ``_remat``): the same loss and gradients, at another peak memory."""
     compress = model.cfg.grad_compression
 
     def train_step(params, opt_state, batch):

@@ -13,9 +13,12 @@ and compare like with like.
 
 Compute dtype is bf16, with the same f32 islands as the reference: norm and
 rope math in f32, attention scores and softmax in f32 and then cast to bf16,
-the MoE router in f32, the RWKV decay and state in f32. int8 KV,
-``chunked_attention``, the MoE ``shard_map`` all-to-all and Mamba are not
-ported yet (``ROADMAP.md``, Queue 1).
+the MoE router in f32, the RWKV decay and state in f32. The serving cache
+may hold K/V as int8 with a bf16 scale a row and head (``quantize_kv``),
+and full-sequence passes may run the online-softmax ``chunked_attention``
+(``cfg.attn_chunk``), each as the reference computes it. The MoE
+``shard_map`` all-to-all and Mamba are not ported yet (``ROADMAP.md``,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -211,6 +214,64 @@ def cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return out.reshape(b, n, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
 
 
+def attention_chunk(t: int, requested: int) -> int:
+    """The chunk a full-sequence pass over ``t`` keys takes for
+    ``cfg.attn_chunk = requested``: the largest divisor of ``t`` not above
+    ``min(requested, t)``, as the reference picks it (1,500 → 500 and
+    4,672 → 292 at 512). 1 means the plain path."""
+    return next(c for c in range(min(requested, t), 0, -1) if t % c == 0)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int, *,
+                      causal: bool, chunk: int) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``chunk`` rows, the
+    reference's ``lax.scan`` as a loop, op for op: everything in f32, the
+    scores multiplied by an f32 ``1/sqrt(d)`` (not divided by ``sqrt(d)``
+    as :func:`gqa_scores` does), the causal mask at -1e30 and the running
+    max ``m``, sum ``l`` and accumulator updated in the reference's order;
+    the output ``acc / l`` cast to q's dtype. It never holds the S×T
+    scores at once. q: (B,S,Hq,D); k,v: (B,T,Hkv,D) -> (B,S,Hq,D)."""
+    b, s, hq, d = q.shape
+    t = k.shape[1]
+    if t % chunk:
+        raise ValueError(f"chunk {chunk} does not divide {t} keys")
+    g = hq // n_kv
+    qg = q.reshape(b, s, n_kv, g, d).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    rows = torch.arange(s, device=q.device)
+    m = torch.full((b, n_kv, g, s, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n_kv, g, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n_kv, g, s, d), dtype=torch.float32, device=q.device)
+    for j in range(0, t, chunk):
+        sc = torch.einsum("bsngd,btnd->bngst", qg, k[:, j:j + chunk].float()) * scale
+        if causal:
+            cols = j + torch.arange(chunk, device=q.device)
+            sc = torch.where((rows[:, None] >= cols[None, :])[None, None, None], sc, -1e30)
+        m_new = torch.maximum(m, torch.amax(sc, dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bngst,btnd->bngsd", p, v[:, j:j + chunk].float())
+        m = m_new
+    out = (acc / l).to(q.dtype)  # (B,n,g,S,D)
+    return out.movedim(3, 1).reshape(b, s, hq, d)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantization of x (B,S,H,D), as the
+    reference's: the scale is ``max|x| / 127`` in f32, floored at 1e-8;
+    ``x / scale`` rounds half to even and clips to ±127. Returns (int8
+    values, the scale (B,S,H,1) in bf16)."""
+    x32 = x.float()
+    scale = torch.clamp_min(torch.amax(torch.abs(x32), dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale.to(COMPUTE_DTYPE)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(COMPUTE_DTYPE) * scale.to(COMPUTE_DTYPE)
+
+
 def masked_cache_write(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor,
                        update_mask: torch.Tensor | None) -> None:
     """Write one row per slot into ``buf`` (B, T, H, D), in place, at that
@@ -256,9 +317,13 @@ def attention_apply(
     as the training forward runs it, causal unless ``causal=False``. With
     ``kv`` ((B, T, d), the encoder's output), cross-attention: K and V come
     from ``kv``, unrotated, and no mask applies. ``use_rope=False`` rotates
-    neither Q nor K (``positions`` may then be None).
+    neither Q nor K (``positions`` may then be None). With
+    ``cfg.attn_chunk`` and more than that many query rows, the pass runs
+    :func:`chunked_attention` over chunks of :func:`attention_chunk` keys
+    (the plain path where that is 1).
 
-    With ``cache`` ({"k","v": (B, S_max, Hkv, D)}, updated in place) and
+    With ``cache`` ({"k","v": (B, S_max, Hkv, D)}, for an int8 cache also
+    {"k_scale","v_scale": (B, S_max, Hkv, 1)}, updated in place) and
     ``cache_pos`` ((B,) per-slot positions): one new token per slot,
     written at its position (only where ``update_mask`` selects),
     attending to the cache rows up to its position. Every slot, a
@@ -285,17 +350,13 @@ def attention_apply(
 
     b, s = x.shape[:2]
     if cache is not None:
-        masked_cache_write(cache["k"], k, cache_pos, update_mask)
-        masked_cache_write(cache["v"], v, cache_pos, update_mask)
         cols = torch.arange(cache["k"].shape[1], device=x.device)[None, :]  # (1, T)
-        if update_mask is None:  # every row is in place already
-            k, v = cache["k"], cache["v"]
-        else:  # each row's own K/V at its position, where the reference wrote it
-            # before attending; a row past the cache has no mark, so nothing is
-            # added, as XLA drops that write
-            own = (cols == cache_pos[:, None])[:, :, None, None]  # (B, T, 1, 1)
-            k = torch.where(own, k.to(cache["k"].dtype), cache["k"])
-            v = torch.where(own, v.to(cache["v"].dtype), cache["v"])
+        k, v = _cached_kv(cache, k, v, cols, cache_pos, update_mask)
+    elif cfg.attn_chunk and s > cfg.attn_chunk:
+        chunk = attention_chunk(k.shape[1], cfg.attn_chunk)
+        if chunk > 1:
+            out = chunked_attention(q, k, v, hkv, causal=causal and kv is None, chunk=chunk)
+            return out.reshape(b, s, -1) @ params["wo"]
 
     scores = gqa_scores(q, k, hkv).float()
     t = k.shape[1]
@@ -309,6 +370,32 @@ def attention_apply(
     probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
     out = gqa_combine(probs, v)
     return out.reshape(b, s, -1) @ params["wo"]
+
+
+def _cached_kv(cache: dict, k: torch.Tensor, v: torch.Tensor, cols: torch.Tensor,
+               cache_pos: torch.Tensor, update_mask: torch.Tensor | None):
+    """Writes the new (B, 1, Hkv, D) K and V into the layer's cache at each
+    slot's position (only where ``update_mask`` selects) and returns the K
+    and V to attend over: the whole cache, with each row's own new K/V at
+    its position, where the reference wrote it before attending (a row
+    past the cache has no mark there, so nothing is added, as XLA drops
+    that write). A cache with ``k_scale`` holds int8 K/V: the new rows are
+    quantized first (:func:`quantize_kv`) and the whole cache is
+    dequantized to attend over, as the reference does; a masked-out row
+    thus attends with its own quantized-then-dequantized K/V."""
+    new = {"k": k, "v": v}
+    if "k_scale" in cache:
+        (new["k"], new["k_scale"]), (new["v"], new["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    for key, val in new.items():
+        masked_cache_write(cache[key], val, cache_pos, update_mask)
+    seen = cache  # every row is in place already
+    if update_mask is not None:
+        own = (cols == cache_pos[:, None])[:, :, None, None]  # (B, T, 1, 1)
+        seen = {key: torch.where(own, val.to(cache[key].dtype), cache[key])
+                for key, val in new.items()}
+    if "k_scale" in cache:
+        return dequantize_kv(seen["k"], seen["k_scale"]), dequantize_kv(seen["v"], seen["v_scale"])
+    return seen["k"], seen["v"]
 
 
 # --------------------------------------------------------------------------

@@ -23,19 +23,35 @@ are stacked per layer under a leading ``n_layers`` axis (the reference's
 ``(n_layers, B, max_len, Hkv, D)`` (``ssm``: ``s`` (n_layers, B, H, K, V)
 f32, ``shift_tm`` and ``shift_cm`` (n_layers, B, d); ``encdec`` adds the
 cross-attention's ``xk``/``xv`` (n_layers, B, encoder_seq_len, Hkv, D),
-which a decode step reads and never writes). Where the reference donates
-the cache and gets a new one back, the port updates every leaf in place,
-at a fixed address, and returns the same dict.
+which a decode step reads and never writes; with ``cache_quant="int8"``
+the dense, vlm and moe caches hold int8 ``k``/``v`` and bf16
+``k_scale``/``v_scale`` (n_layers, B, max_len, Hkv, 1)). Where the
+reference donates the cache and gets a new one back, the port updates every
+leaf in place, at a fixed address, and returns the same dict.
+
+``cfg.attn_chunk`` runs full-sequence attention in online-softmax chunks
+(``layers.chunked_attention``), and ``cfg.remat`` checkpoints each layer of
+a full-sequence pass while autograd records (:func:`_remat`), as the
+reference's ``jax.checkpoint`` does: it changes memory, not numbers.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..kernels import ops as kernel_ops
 from . import layers as L
 from .config import ModelConfig
+
+# the products with no batch dimension, whose outputs remat="dots" keeps: every
+# 2-D projection and the MoE router reach aten.mm (a (B, S, d) @ (d, f)
+# folds into one); the attention einsums and the MoE experts' products reach
+# bmm and are recomputed, as JAX's checkpoint_dots_with_no_batch_dims does
+_DOTS = [torch.ops.aten.mm.default]
 
 
 def _norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -50,6 +66,26 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     them."""
     ang = positions[..., None].float() * L.inv_freqs(d, 10_000.0, positions.device)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(L.COMPUTE_DTYPE)
+
+
+def _remat(body, cfg: ModelConfig):
+    """The reference's ``_remat`` of a layer body: ``"full"`` keeps only the
+    body's inputs and recomputes the rest in the backward
+    (``jax.checkpoint``); ``"dots"`` keeps the outputs of the products with
+    no batch dimension too (``checkpoint_dots_with_no_batch_dims``), by
+    selective checkpointing. Only while autograd records: under
+    ``no_grad`` (serving, a graph capture) the body runs as it is."""
+    if cfg.remat == "none":
+        return body
+    context = {} if cfg.remat == "full" else {
+        "context_fn": partial(create_selective_checkpoint_contexts, _DOTS)}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, **context)
+
+    return run
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -76,10 +112,6 @@ class Model:
                 f"family {cfg.family!r} is not ported; the port runs dense, vlm, moe, ssm "
                 f"(RWKV-6) and encdec (whisper), and hybrid is queued in "
                 f"ROADMAP.md, Queue 1, \"The other families\"")
-        if cfg.cache_quant != "none" or cfg.attn_chunk:
-            raise NotImplementedError(
-                "int8 KV and chunked attention are not ported: ROADMAP.md, "
-                "Queue 1, \"int8 KV and chunked_attention\"")
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -189,22 +221,30 @@ class Model:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in _layers(trunk, cfg.n_layers):
+
+        def body(x, aux, lp):
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions)
             y, a = self._mlp(lp, x)
-            x = x + y
-            if a is not None:
-                aux = aux + a
+            return x + y, aux if a is None else aux + a
+
+        body = _remat(body, cfg)
+        for lp in _layers(trunk, cfg.n_layers):
+            x, aux = body(x, aux, lp)
         return x, aux
 
     def _rwkv_trunk(self, trunk: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        for lp in _layers(trunk, cfg.n_layers):
+
+        def body(x, lp):
             x = x + L.rwkv_apply(lp["tm"], cfg, _norm(lp["tm_norm"], x, cfg.norm_eps))
             h = _norm(lp["cm_norm"], x, cfg.norm_eps)
             shifted = F.pad(h, (0, 0, 1, 0))[:, :-1]
-            x = x + L.rwkv_channel_mix(lp["cm"], h, shifted)
+            return x + L.rwkv_channel_mix(lp["cm"], h, shifted)
+
+        body = _remat(body, cfg)
+        for lp in _layers(trunk, cfg.n_layers):
+            x = body(x, lp)
         return x
 
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -215,10 +255,15 @@ class Model:
         cfg = self.cfg
         x = frames.to(L.COMPUTE_DTYPE)
         x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
-        for lp in _layers(params["enc_layers"], cfg.n_encoder_layers):
+
+        def body(x, lp):
             x = x + L.attention_apply(lp["attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps), None,
                                       causal=False, use_rope=False)
-            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln2"], x, cfg.norm_eps))
+            return x + L.mlp_apply(lp["mlp"], _norm(lp["ln2"], x, cfg.norm_eps))
+
+        body = _remat(body, cfg)
+        for lp in _layers(params["enc_layers"], cfg.n_encoder_layers):
+            x = body(x, lp)
         return _norm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def cross_kv(self, params: dict, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -248,12 +293,17 @@ class Model:
         enc = self.encode(params, batch["frontend_embeds"])
         x = params["embed"][batch["tokens"]]
         x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)[None]
-        for lp in _layers(params["dec_layers"], cfg.n_layers):
+
+        def body(x, lp):
             x = x + L.attention_apply(lp["self_attn"], cfg, _norm(lp["ln1"], x, cfg.norm_eps),
                                       None, use_rope=False)
             x = x + L.attention_apply(lp["cross_attn"], cfg, _norm(lp["ln2"], x, cfg.norm_eps),
                                       None, causal=False, use_rope=False, kv=enc)
-            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
+            return x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
+
+        body = _remat(body, cfg)
+        for lp in _layers(params["dec_layers"], cfg.n_layers):
+            x = body(x, lp)
         x = _norm(params["final_norm"], x, cfg.norm_eps)
         return x @ self._head(params), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -292,7 +342,10 @@ class Model:
         ``encdec`` also the cross-attention's ``xk``/``xv`` of
         ``encoder_seq_len`` rows a slot, zeros as the reference's are: the
         serving engine writes each request's window into its slot
-        (:meth:`cross_kv`)."""
+        (:meth:`cross_kv`). With ``cache_quant="int8"``, the dense, vlm and
+        moe caches hold int8 ``k``/``v`` and bf16 ``k_scale``/``v_scale`` of
+        one column; ``encdec``'s stays bf16, as the reference ignores
+        ``cache_quant`` there."""
         cfg = self.cfg
         if cfg.family == "ssm":
             n, hd = cfg.n_layers, cfg.rwkv_head_dim
@@ -304,12 +357,18 @@ class Model:
                 "shift_cm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
                                         device=self.device),
             }
-        rows = {"k": max_len, "v": max_len}
+        quant = cfg.cache_quant == "int8" and cfg.family != "encdec"
+        kv_dtype = torch.int8 if quant else L.COMPUTE_DTYPE
+        leaves = {"k": (max_len, cfg.head_dim_, kv_dtype), "v": (max_len, cfg.head_dim_, kv_dtype)}
+        if quant:
+            leaves.update(k_scale=(max_len, 1, L.COMPUTE_DTYPE),
+                          v_scale=(max_len, 1, L.COMPUTE_DTYPE))
         if cfg.family == "encdec":
-            rows.update(xk=cfg.encoder_seq_len, xv=cfg.encoder_seq_len)
-        return {key: torch.zeros((cfg.n_layers, batch_size, t, cfg.n_kv_heads, cfg.head_dim_),
-                                 dtype=L.COMPUTE_DTYPE, device=self.device)
-                for key, t in rows.items()}
+            window = (cfg.encoder_seq_len, cfg.head_dim_, L.COMPUTE_DTYPE)
+            leaves.update(xk=window, xv=window)
+        return {key: torch.zeros((cfg.n_layers, batch_size, t, cfg.n_kv_heads, width),
+                                 dtype=dtype, device=self.device)
+                for key, (t, width, dtype) in leaves.items()}
 
     def decode_step(
         self, params: dict, cache: dict, tokens: torch.Tensor, pos,
@@ -427,7 +486,7 @@ class Model:
         positions = pos[:, None]
         for i in range(cfg.n_layers):
             lp = _layer(trunk, i)
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}  # views
+            layer_cache = {key: leaf[i] for key, leaf in cache.items()}  # views
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions,
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)

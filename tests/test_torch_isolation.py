@@ -7,8 +7,9 @@ reference's does; the vision-language family through its prefixed forward and th
 the other dense configurations through the driver), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
 import their modules lazily, so the run calls them); it trains through
-``python -m repro_torch.launch.train``, with and without checkpoints, with
-``ml_dtypes`` made unimportable too; and its copy of the compiler evaluates
+``python -m repro_torch.launch.train``, with and without checkpoints, and
+takes a ``remat="full"`` train step, with ``ml_dtypes`` made unimportable
+too; it serves an int8 cache and runs a chunked ``forward``; and its copy of the compiler evaluates
 and ``python -m repro_torch.obs.doctor`` diagnoses traced bridge runs with
 the same three unimportable."""
 
@@ -37,6 +38,17 @@ for i, p in enumerate([[5, 9, 2], [7, 1], [3, 3, 3, 3]]):
     engine.submit(Request(uid=i, prompt=p, max_new_tokens=4))
 done = engine.run_until_done()
 assert sorted(len(r.generated) for r in done) == [4, 4, 4], done
+import torch
+q8 = Model(dataclasses.replace(cfg, cache_quant="int8", attn_chunk=4), device="cpu")
+q8_params = q8.init(0)
+engine = ServingEngine(q8, q8_params, max_slots=2, max_len=32)
+for i, p in enumerate([[5, 9, 2], [7, 1]]):
+    engine.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+q8_done = engine.run_until_done()
+assert sorted(len(r.generated) for r in q8_done) == [4, 4], q8_done
+assert engine.cache["k"].dtype == torch.int8 and "k_scale" in engine.cache
+chunked, _ = q8.forward(q8_params, {"tokens": torch.ones((1, 12), dtype=torch.int64)})
+print("int8 served", len(q8_done), "chunked forward", tuple(chunked.shape))
 import runpy
 for mode in ("sequential", "concurrent", "fused"):  # python -m repro_torch.launch.serve
     sys.argv = ["serve", "--device", "cpu", "--reduced", "--steps", "6", "--mode", mode]
@@ -126,6 +138,7 @@ def test_port_serves_with_jax_and_repro_unimportable():
     for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"):
         assert f"[serve] arch={arch} mode=fused batch=4 steps=4: " in out.stdout
     assert "refused: serve driver targets decoder-only archs" in out.stdout
+    assert "int8 served 2 chunked forward (1, 12, 256)" in out.stdout
 
 
 _CALIBRATE_WITHOUT_JAX = """
@@ -162,6 +175,19 @@ for extra in ([], ["--ckpt-dir", ckpt, "--ckpt-every", "4"]):
     runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
 from repro_torch.checkpoint import CheckpointStore
 assert CheckpointStore(ckpt).steps() == [4, 8, 10], CheckpointStore(ckpt).steps()
+import dataclasses, torch
+from repro_torch.configs import get
+from repro_torch.data import SyntheticLMDataset
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.model import Model
+from repro_torch.optim import AdamW
+model = Model(dataclasses.replace(get("paper-lm-100m").reduced(), remat="full"), device="cpu")
+params = model.init(0)
+batch = {k: torch.from_numpy(v)
+         for k, v in SyntheticLMDataset(model.cfg.vocab_size, 16, 2).batch(0).items()}
+_, _, metrics = build_train_step(model, AdamW())(params, AdamW().init(params), batch)
+assert torch.isfinite(metrics["loss"]), metrics
+print("remat full step")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -176,7 +202,7 @@ def test_port_trains_on_the_cpu_with_jax_repro_and_ml_dtypes_unimportable(tmp_pa
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("[train] arch=paper-lm-100m params=0.1M batch=8 seq=256") == 2
     assert "[train] straggler events: " in out.stdout and "restarts: 0" in out.stdout
-    assert "trained" in out.stdout
+    assert "trained" in out.stdout and "remat full step" in out.stdout
 
 
 _DOCTOR_WITHOUT_JAX = """

@@ -47,12 +47,25 @@ def test_config_and_registry_match_reference():
 @pytest.mark.parametrize("change", [
     {"family": "hybrid"},
     {"family": "hybrid", "attn_period": 8, "n_experts": 4, "experts_per_token": 2,
-     "moe_period": 2},  # jamba's layout: Mamba, attention a group of 8, MoE every other layer
-    {"cache_quant": "int8"}, {"attn_chunk": 64}])
+     "moe_period": 2}])  # jamba's layout: Mamba, attention a group of 8, MoE every other layer
 def test_model_rejects_what_is_not_ported(change):
     cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [{"cache_quant": "int8"}, {"attn_chunk": 64}])
+def test_model_admits_the_int8_cache_and_chunked_attention(change):
+    """Both knobs are ported (``tests/test_torch_int8_kv.py``,
+    ``tests/test_torch_chunked_attention.py``): the model builds, and its
+    cache and forward take them."""
+    cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), remat="none", **change)
+    model = TorchModel(cfg, device="cpu")
+    cache = model.init_cache(2, 8)
+    assert (cache["k"].dtype == torch.int8) == (cfg.cache_quant == "int8")
+    assert ("k_scale" in cache) == (cfg.cache_quant == "int8")
+    logits, _ = model.forward(model.init(0), {"tokens": torch.ones((1, 80), dtype=torch.int32)})
+    assert tuple(logits.shape) == (1, 80, cfg.vocab_size)
 
 
 def test_init_draws_the_reference_tree(pair):

@@ -30,6 +30,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import re
+from collections import Counter
 from pathlib import Path
 
 import jax
@@ -42,14 +43,17 @@ from _torch_port import reduced_pair, to_torch
 from repro.data import SyntheticLMDataset as JaxDataset
 from repro.data import make_train_iterator as jax_iterator
 from repro.launch.steps import build_train_step as jax_build_train_step
+from repro.models.model import Model as JaxModel
 from repro.optim import AdamW as JaxAdamW
 from repro.optim import CosineSchedule as JaxSchedule
+from repro_torch.configs import get as torch_get
 from repro_torch.data import SyntheticLMDataset, make_train_iterator
 from repro_torch.launch import train as train_driver
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.model import Model as TorchModel
 from repro_torch.optim import AdamW, CosineSchedule
 from repro_torch.tree import leaves, unflatten
+from torch.utils._python_dispatch import TorchDispatchMode
 
 EXACT = {"xla_allow_excess_precision": False}
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -236,11 +240,127 @@ def test_build_train_step_with_bf16_grad_compression_matches_jax():
         assert gap.max() <= 2.01 * lr and np.mean(gap > 0.1 * lr) < 0.01
 
 
-def test_remat_other_than_none_is_not_ported():
-    tmodel = reduced_pair(0, "paper-lm-100m")[3]
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_train_step(TorchModel(dataclasses.replace(tmodel.cfg, remat="full"),
-                                    device="cpu"), AdamW())
+# ----------------------------------------------------------------- remat
+
+REMAT_ARCHS = ["qwen2-0.5b", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b", "rwkv6-7b",
+               "whisper-medium"]
+
+
+def _port_grads(cfg, params, batch: dict, remat: str):
+    """The loss and every gradient leaf of the port at ``remat``."""
+    model = TorchModel(dataclasses.replace(cfg, remat=remat), device="cpu")
+    return _torch_grads(model, params, batch)
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gives_the_gradients_of_none(arch, remat):
+    """Checkpointing changes memory, not numbers: on the CPU the loss, its
+    parts and every gradient leaf equal ``remat="none"``'s bit for bit
+    (B = 2, S = 16; the recomputed forward is the first one op for op)."""
+    cfg = dataclasses.replace(torch_get(arch).reduced(), remat="none")
+    params = TorchModel(cfg, device="cpu").init(0)
+    batch = _batch(cfg, 2, 16)
+    loss, parts, grads = _port_grads(cfg, params, batch, "none")
+    rloss, rparts, rgrads = _port_grads(cfg, params, batch, remat)
+    assert torch.equal(rloss, loss)
+    assert all(torch.equal(rparts[k], parts[k]) for k in parts)
+    assert len(rgrads) == len(grads) == len(leaves(params))
+    assert all(torch.equal(a, b) for a, b in zip(rgrads, grads))
+
+
+def _backward_ops(cfg, params, batch: dict, remat: str) -> Counter:
+    """The aten ops the backward of the loss at ``remat`` runs, by name:
+    the gradients' own, and the forward ops a checkpoint recomputes."""
+    model = TorchModel(dataclasses.replace(cfg, remat=remat), device="cpu")
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    loss, _ = model.loss(unflatten(params, flat), batch)
+    counts = Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        torch.autograd.grad(loss, flat)
+    return counts
+
+
+def test_remat_dots_keeps_the_products_outputs_and_recomputes_the_rest():
+    """The reduced qwen2-0.5b: ``"dots"`` recomputes no 2-D product (its
+    backward runs as many ``mm`` as ``"none"``'s, where ``"full"`` runs the
+    forward's projections again, up to the last whose output the backward
+    needs: six a layer, the MLP's ``wo`` feeding only the residual) and
+    recomputes everything else the layers ran, as ``"full"`` does: the
+    attention's ``bmm`` and softmax, the norms, the rotary embedding."""
+    cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), remat="none")
+    params = TorchModel(cfg, device="cpu").init(0)
+    batch = _to_torch_batch(_batch(cfg, 2, 16))
+    none, dots, full = (_backward_ops(cfg, params, batch, r) for r in ("none", "dots", "full"))
+    projections = 6 * cfg.n_layers  # wq, wk, wv, wo, wi, wg a layer
+    assert dots["aten.mm"] == none["aten.mm"]
+    assert full["aten.mm"] == none["aten.mm"] + projections
+    for op in ("aten.bmm", "aten._softmax", "aten.rsqrt", "aten.cos"):
+        assert dots[op] == full[op] > none[op], op
+    assert full - dots == Counter({"aten.mm": projections}) and not dots - full
+
+
+def test_no_checkpoint_runs_under_no_grad(monkeypatch):
+    """``remat="full"``: the forward under ``no_grad`` and a decode step run
+    no checkpoint and give ``"none"``'s logits bit for bit; the same forward
+    under autograd checkpoints every layer."""
+    from repro_torch.models import model as TM
+
+    calls = []
+    run = TM.checkpoint
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return run(*args, **kwargs)
+
+    monkeypatch.setattr(TM, "checkpoint", counted)
+    cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), remat="none")
+    plain, model = TorchModel(cfg, device="cpu"), TorchModel(
+        dataclasses.replace(cfg, remat="full"), device="cpu")
+    params = plain.init(0)
+    tokens = {"tokens": torch.from_numpy(_batch(cfg, 2, 16)["tokens"])}
+    with torch.no_grad():
+        assert torch.equal(model.forward(params, tokens)[0], plain.forward(params, tokens)[0])
+        step = [m.decode_step(params, m.init_cache(2, 4), tokens["tokens"][:, :1], 0)[0]
+                for m in (model, plain)]
+        assert torch.equal(*step)
+    assert calls == []
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    model.forward(unflatten(params, flat), tokens)
+    assert len(calls) == cfg.n_layers
+
+
+def test_build_train_step_with_remat_full_matches_jax():
+    """``build_train_step`` at ``remat="full"`` against the reference's
+    ``remat="full"`` gradients (reduced paper-lm-100m, B = 4, S = 32), at
+    ``test_loss_and_gradients_match_jax``'s tolerances: the loss within
+    relative 2e-3, every gradient the update receives within relative L2
+    2e-2."""
+    cfg, _, jparams, tmodel, tparams = reduced_pair(0, "paper-lm-100m")
+    jmodel = JaxModel(dataclasses.replace(cfg, remat="full"))
+    batch = _batch(cfg)
+    (jloss, _), jgrads = _jax_grads(jmodel, jparams, batch)
+    seen = []
+
+    class Spy(AdamW):
+        def update(self, params, grads, state):
+            seen.extend(leaves(grads))
+            return super().update(params, grads, state)
+
+    model = TorchModel(dataclasses.replace(tmodel.cfg, remat="full"), device="cpu")
+    _, _, metrics = build_train_step(model, Spy())(tparams, AdamW().init(tparams),
+                                                   _to_torch_batch(batch))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jloss), rtol=LOSS_RTOL)
+    jflat = jax.tree.leaves(jgrads)
+    assert len(seen) == len(jflat) == 12
+    for j, t in zip(jflat, seen):
+        assert _rel_l2(j, t.float().numpy()) <= GRAD_REL_L2
 
 
 # ------------------------------------------------------------ optimizer
