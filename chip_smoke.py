@@ -137,7 +137,7 @@ Phases, each printing its results; any failure exits non-zero:
    (4, 16) beside torch.topk; one masked fused decode step under
    ``torch.cuda.set_sync_debug_mode("error")``; ``forward`` against
    teacher-forced ``decode_step`` at drop-free capacity, every router call
-   recorded (``_moe_parity`` says what it holds); the serving engine
+   recorded (``_decode_parity``, 11a); the serving engine
    (4 requests of 16-32 seeded tokens, 16 new tokens, 4 slots × 512,
    prefill chunk 8) fused then host-sampled, with bit-identical streams,
    greedy_sample once per fused decode launch and top_k 16 times an eager
@@ -147,15 +147,28 @@ Phases, each printing its results; any failure exits non-zero:
    the fused mode profiled. The model is freed at the end. The record's
    top_k ``launches`` are this path's (``launches_ops``: the ops path's),
    and its ``router_*`` keys the router shape's times and bound.
+11a. Forward against teacher-forced decode (``_decode_parity``, B = 8,
+   S = 8, on the model's device), decided by evidence no weight draw
+   decides: decode with its batch padded to the forward's 64 product rows
+   equals the forward bit for bit (a hybrid's forward runs its Mamba
+   layers in decode's formulation for this, and its first Mamba layer's
+   associative scan is held to the steps in f32 within ``MAMBA_F32_TOL``
+   of the output's scale); at 8 rows the decode's largest distance from
+   an f32 forward (weights cast up a layer at a time, experts a few at a
+   time) within ``F32_RATIO`` times the bf16 forward's, over the positions
+   before each row's first routing divergence; each route the bf16 paths
+   part first in its row at a near-tie (its k-th/(k+1)-th margin within
+   twice the largest probability gap before any parting). Top-1 agreement
+   and test_decode_parity's tolerance fractions are printed, not decided.
+   ``parity_sweep.py`` runs it over 22 weight draws, and with ``--mutate``
+   under each decode fault of ``fault`` it must catch.
 12. SSM: rwkv6-7b whole (32 of 32 layers at its published widths, 15.04 GB
    of bf16 weights seeded on the card), after the MoE model is freed, with
    the parameter count read from the tree. greedy_sample exactly against
    its plain version at the head's shapes, (4, 65536) and (1, 65536) bf16,
    as in 13 (``_head_greedy_check``), then timed at both
    beside torch.argmax and its bound; ``forward`` against teacher-forced
-   ``decode_step`` (B = 2, S = 8): bit for bit with the decode batch padded
-   to the forward's 16 product rows, and at 2 rows printed against
-   test_decode_parity's tolerances with top-1 held (``_ssm_parity``); one
+   ``decode_step`` as in 11a; one
    masked fused decode step under ``set_sync_debug_mode("error")``, after
    which the masked row's ``s``, ``shift_tm`` and ``shift_cm`` must be
    bit-identical; the serving engine (4 requests of 16-32 seeded tokens, 16
@@ -167,9 +180,36 @@ Phases, each printing its results; any failure exits non-zero:
    weights once and the state twice; peak memory and the phase's seconds.
    The record's ``launches_ssm`` are this path's greedy_sample launches,
    its ``*_ssm`` keys the (4, 65536) times and bound.
+12b. The configurations one card cannot hold whole, at their published
+   widths cut in depth (``CUTS``), each after the last is freed:
+   jamba-1.5-large-398b (``[hybrid]``) as one group of n_layers =
+   attn_period = 4 (attention with its dense MLP, then Mamba+MoE,
+   Mamba+MLP, Mamba+MoE; 22,970,204,160 parameters, 45.94 GB) and
+   kimi-k2-1t-a32b (``[kimi-k2]``) as 1 of its 61 layers (384 experts top-8,
+   head_dim 112; 19,378,616,320 parameters, 38.76 GB). Each prints the cut
+   and the count, then: greedy_sample at the head's shapes as in 13
+   ((4, 65536), (4, 163840)); top_k at kimi-k2's router, (4, 384) and
+   (16, 384) f32 at k = 8 and on ties, timed at (4, 384) beside torch.topk
+   (jamba's (4, 16) k = 2 is [moe]'s); the seeded draw on the card and its
+   peak memory; 11a; one masked fused decode step under
+   ``set_sync_debug_mode("error")``, after which the masked row's cache
+   leaves (a hybrid's ``h``/``conv`` too) are bit-identical; the serving
+   engine (4 requests of 16-32 seeded tokens, 16 new tokens) fused then
+   host-sampled, with bit-identical streams, greedy_sample once per fused
+   decode launch and top_k once per router an eager step, counted from 0
+   just before the fused run and read just after; for the hybrid, at
+   drop-free capacity, the same prompts twice over the 4 slots, each copy
+   in a slot its original freed giving its original's stream (a fresh
+   Mamba state); the serving loop's three modes as in 6 (batch 4, 32
+   steps, fuse 8), the fused step beside the bound of reading the weights
+   once (every expert: the reference computes every expert's buffer);
+   one eager fused decode step profiled; peak memory and the phase's
+   seconds. The record's ``launches_hybrid``/``launches_kimi`` are these
+   paths' greedy_sample and top_k launches, ``*_kimi`` keys the
+   (4, 163840) head's and ``router_kimi_*`` the (4, 384) router's times.
 13. Encoder-decoder: whisper-medium whole (24 encoder and 24 decoder
    layers at its published widths, 758,002,688 parameters, 1.52 GB of bf16
-   weights seeded on the card), after the RWKV model is freed, with the
+   weights seeded on the card), after the kimi-k2 model is freed, with the
    parameter count read from the tree. greedy_sample exactly against its
    plain version at the head's shapes, (4, 51865) and (1, 51865) bf16, on
    random rows, on ties and NaNs straddling the chunk boundaries of the
@@ -284,6 +324,8 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -305,6 +347,13 @@ SEED = 0
 N_REQUESTS = 8
 MAX_NEW = 32
 PARITY_RTOL, PARITY_ATOL, PARITY_TOP1 = 0.05, 0.15, 0.9  # test_decode_parity's
+# forward vs decode at B = 2 rows (_decode_parity): each bf16 path's largest distance from
+# an f32 forward. Over 22 draws of each family, twice (PERF.md §6), correct decodes lay
+# 0.56-1.55x as far as the forward (the hybrid's Mamba state the widest); a fault, 3-50x
+F32_RATIO = 2.0
+PARITY_ROWS = 8  # B of the forward-vs-decode check: 8 rows of 8 positions
+MAMBA_F32_TOL = 1e-4  # mamba_apply against mamba_step in f32, of the output's largest |y|
+FAULTS = ("kv_row", "state")  # the decode faults _decode_parity must catch
 SERVE_BATCH, SERVE_STEPS, SERVE_CACHE, SERVE_FUSE = 4, 64, 256, 8  # python -m repro_torch.launch.serve's defaults
 # the serving-bridge benchmark's first cell (benchmarks/serving_bridge.py)
 BRIDGE_TENANTS, BRIDGE_HOSTS, BRIDGE_SLOTS, BRIDGE_MAX_LEN, BRIDGE_MAX_NEW = 6, 2, 4, 64, 10
@@ -315,9 +364,14 @@ MOE_STEPS, MOE_CACHE = 32, 64  # launch.serve: batch and fuse as the command's d
 # the [ssm] phase: rwkv6-7b whole, at its published widths and depth
 SSM_ARCH, SSM_V = "rwkv6-7b", 65_536
 SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
-# forward vs decode at B = 2 rows: each bf16 path's largest distance from an f32
-# forward; the two lay 0.71-0.79 apart from it (a ratio up to 1.11, PERF.md §6)
-SSM_F32_RATIO = 1.25
+# the [hybrid] and [kimi-k2] phases: a configuration one card cannot hold whole, every width
+# as published and its depth cut: jamba-1.5-large-398b to one group of n_layers =
+# attn_period = 4 (attention with its dense MLP, then Mamba+MoE, Mamba+MLP, Mamba+MoE),
+# kimi-k2-1t-a32b to 1 of its 61 layers; (arch, tag, cut, the record's key suffix)
+CUTS = (("jamba-1.5-large-398b", "[hybrid]", {"n_layers": 4, "attn_period": 4}, "hybrid"),
+        ("kimi-k2-1t-a32b", "[kimi-k2]", {"n_layers": 1}, "kimi"))
+CUT_REQUESTS, CUT_PROMPT, CUT_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
+CUT_STEPS, CUT_CACHE = 32, 64  # launch.serve: batch and fuse as the command's defaults
 # the [encdec] phase: whisper-medium whole, at its published widths and depth
 ENCDEC_ARCH, ENCDEC_V = "whisper-medium", 51_865
 ENCDEC_REQUESTS, ENCDEC_PROMPT, ENCDEC_NEW = 8, (4, 33), 32  # prompts of 4-32 seeded tokens
@@ -1305,8 +1359,6 @@ def phase_int8_kv(model, params, smi: str, bf16_modes: dict) -> int:
     one profiled beside the bf16 fused step (``bf16_modes``); the cache's
     bytes against bf16's. Returns the fused engine run's greedy_sample
     launches."""
-    import dataclasses
-
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.models import layers as L
     from repro_torch.models.model import Model
@@ -1436,8 +1488,6 @@ def phase_chunked(model, params, smi: str) -> None:
     """qwen2-0.5b's ``forward`` at B = 1, S = 4,096 with ``attn_chunk`` 512
     against 0, at test_perf_features.py's tolerance, each timed with its
     peak memory."""
-    import dataclasses
-
     from repro_torch.models.model import Model
 
     chunked = Model(dataclasses.replace(model.cfg, attn_chunk=CHUNK), device="cuda")
@@ -1843,57 +1893,165 @@ def phase_compiler() -> None:
         raise SystemExit(f"Gemmini geomean {gem[0]} outside the paper's band")
 
 
-def _moe_router_check(smi: str) -> dict:
-    """top_k against its plain version at the router's shapes, ids and
-    values exactly: (4, 16) and (16, 16) f32 probabilities with k = 2, and
-    rows of exact ties, where the lowest expert index must win; then timed
-    at the decode shape (4, 16) beside torch.topk."""
+def _router_check(smi: str, tag: str, e: int, k: int, prefix: str = "router_") -> dict:
+    """top_k against its plain version at a router's shapes, ids and values
+    exactly: (4, e) and (16, e) f32 probabilities, and rows of exact ties
+    (the pattern 1, 3, 2, 3 repeated), where the lowest expert indices of
+    the maximum must win; then timed at the decode shape (4, e) beside
+    torch.topk and its bound. The record's keys start with ``prefix``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sampling import plan_top_k, top_k
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    ties = torch.softmax(torch.tensor([[1.0, 3.0, 2.0, 3.0] * 4] * 4, device="cuda"), -1)
-    cases = {f"({t}, 16)": torch.softmax(torch.randn((t, 16), generator=gen, device="cuda"), -1)
+    pattern = [1.0, 3.0, 2.0, 3.0] * (e // 4)
+    ties = torch.softmax(torch.tensor([pattern] * 4, device="cuda"), -1)
+    cases = {f"({t}, {e})": torch.softmax(torch.randn((t, e), generator=gen, device="cuda"), -1)
              for t in (4, 16)}
-    cases["(4, 16) exact ties"] = ties
+    cases[f"(4, {e}) exact ties"] = ties
     for label, x in cases.items():
-        got_v, got_i = top_k(x, 2)
-        want_v, want_i = ref.top_k_ref(x, 2)
+        got_v, got_i = top_k(x, k)
+        want_v, want_i = ref.top_k_ref(x, k)
         torch.cuda.synchronize()
-        print(f"[moe] top_k router {label} f32 k=2: blocks per row="
-              f"{plan_top_k(*x.shape, 2).splits} ids {got_i[0].tolist()} "
+        print(f"{tag} top_k router {label} f32 k={k}: blocks per row="
+              f"{plan_top_k(*x.shape, k).splits} ids {got_i[0].tolist()} "
               f"exact={torch.equal(got_i, want_i) and torch.equal(got_v, want_v)}")
         torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
         torch.testing.assert_close(got_v, want_v, rtol=0, atol=0)
-    if got_i.tolist() != [[1, 3]] * 4:
-        raise SystemExit(f"top_k broke exact router ties as {got_i.tolist()}, not [1, 3]")
-    x = cases["(4, 16)"]
-    bound = _bound_ms(x.numel() * 4 + x.shape[0] * 2 * 8, 0.0, 1.0)
-    ms = _timed("top_k router (4, 16) f32 k=2", {
-        "ms": lambda: top_k(x, 2), "plain_ms": lambda: ref.top_k_ref(x, 2),
-        "library_ms": lambda: torch.topk(x, 2)}, *bound, smi)
-    return {"router_ms": ms["ms"], "router_plain_ms": ms["plain_ms"],
-            "router_library_ms": ms["library_ms"], "router_bound_ms": bound[0]}
+    lowest = [i for i, v in enumerate(pattern) if v == 3.0][:k]
+    if got_i.tolist() != [lowest] * 4:
+        raise SystemExit(f"top_k broke exact router ties as {got_i.tolist()}, not {lowest}")
+    x = cases[f"(4, {e})"]
+    bound = _bound_ms(x.numel() * 4 + x.shape[0] * k * 8, 0.0, 1.0)
+    ms = _timed(f"top_k router (4, {e}) f32 k={k}", {
+        "ms": lambda: top_k(x, k), "plain_ms": lambda: ref.top_k_ref(x, k),
+        "library_ms": lambda: torch.topk(x, k)}, *bound, smi)
+    return {f"{prefix}ms": ms["ms"], f"{prefix}plain_ms": ms["plain_ms"],
+            f"{prefix}library_ms": ms["library_ms"], f"{prefix}bound_ms": bound[0]}
 
 
-def _moe_parity(model, params, b: int = 2, s: int = 8) -> None:
-    """``forward`` against teacher-forced ``decode_step`` at drop-free
-    capacity (``test_decode_parity``'s), every router call recorded. On the
-    card the two paths multiply 16 rows against 2 in other kernels, so their
-    bf16 activations round apart, and among 16 experts a row whose 2nd and
-    3rd probabilities lie closer than that gap may take another expert in
-    one path; from there that token's numbers part. The check: every token
-    the two paths route alike in every layer (at least half of them) agrees
-    at test_decode_parity's tolerances and top-1, where a token whose top
-    two logits lie within twice its own largest logit gap between the paths
-    counts as agreeing (a 32,064-way argmax of random weights ties often);
-    each other token's first differing route lies at a tie closer than
-    twice the largest probability gap of the rows routed alike (rounding,
-    not another computation)."""
+# ----------------------------------------------------------------------------
+# forward against teacher-forced decode, by evidence no weight draw decides
+
+
+@contextlib.contextmanager
+def fault(name: str | None, most_rows: int | None = None):
+    """A decode made wrong on purpose, for :func:`_decode_parity` to catch
+    (``parity_sweep.py --mutate``, ``tests/test_torch_parity_checks.py``);
+    the forward is untouched. ``"kv_row"``: every attention over a KV cache
+    reads each cached row one position late (the rows rolled by one along
+    the cache). ``"state"``: the first recurrent layer (an ssm's layer 0, a
+    hybrid's first Mamba layer) never writes its state. ``None``: no fault.
+    With ``most_rows``, only decode steps of at most that many rows are
+    wrong: the decode padded to B·S rows is right, so the B-row rules must
+    catch the fault alone."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    def hit(rows: int) -> bool:
+        return most_rows is None or rows <= most_rows
+
+    if name is None:
+        yield
+        return
+    if name == "kv_row":
+        cached = L._cached_kv
+
+        def late(cache, k, *args):
+            k_all, v_all = cached(cache, k, *args)
+            return (k_all.roll(1, 1), v_all.roll(1, 1)) if hit(k.shape[0]) else (k_all, v_all)
+
+        L._cached_kv = late
+        try:
+            yield
+        finally:
+            L._cached_kv = cached
+        return
+    if name != "state":
+        raise ValueError(f"no fault {name!r}; the faults are {FAULTS}")
+    masked = Model.__dict__["_masked_cache"]
+
+    def forgetful(cache, new, update_mask, layer):
+        if layer not in (0, (0, 0)) or not hit(next(iter(new.values())).shape[0]):
+            masked.__func__(cache, new, update_mask, layer)
+
+    Model._masked_cache = staticmethod(forgetful)
+    try:
+        yield
+    finally:
+        Model._masked_cache = masked
+
+
+def faults_of(cfg) -> tuple:
+    """The faults a family's decode has a place for: a KV cache, a state, or both."""
+    return {"ssm": ("state",), "hybrid": FAULTS}.get(cfg.family, ("kv_row",))
+
+
+def _f32(tree: dict) -> dict:
+    """The tree in f32, but an MoE layer's experts, which :func:`_f32_forward`
+    casts a few at a time."""
+    out = {}
+    for k, v in tree.items():
+        if not isinstance(v, dict):
+            out[k] = v.float()
+        elif k in ("moe", "mamba_moe"):
+            out[k] = {**v, "router": v["router"].float()}
+        else:
+            out[k] = _f32(v)
+    return out
+
+
+def _f32_forward(model, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """``forward``'s logits with every operation in f32 (weights cast up a
+    layer at a time, a hybrid's a group at a time; an MoE layer's experts
+    a few at a time, at most 2**28 elements of f32 each; TF32 off on a
+    card): the function both bf16 paths approximate. Returns f32 logits."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model, _norm
+
+    cfg = model.cfg
+    if model.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("the f32 forward needs TF32 off")
+    key, per = ("groups", cfg.attn_period) if cfg.family == "hybrid" else ("layers", 1)
+    one = Model(dataclasses.replace(cfg, n_layers=per), device=model.device)
+    ffn = L._moe_ffn
+
+    def in_parts(p: dict, buf: torch.Tensor) -> torch.Tensor:
+        part = max(1, (1 << 28) // p["wi"][0].numel())
+        return torch.cat([ffn({w: p[w][e:e + part].to(buf.dtype) for w in ("wi", "wg", "wo")},
+                              buf[e:e + part]) for e in range(0, buf.shape[0], part)])
+
+    def layer(tree: dict, i: int) -> dict:
+        return {k: layer(v, i) if isinstance(v, dict) else v[i:i + 1] for k, v in tree.items()}
+
+    L._moe_ffn = in_parts
+    try:
+        x = params["embed"][tokens].float()
+        for i in range(cfg.n_layers // per):
+            x = one.trunk({key: _f32(layer(params[key], i))}, x)[0]
+    finally:
+        L._moe_ffn = ffn
+    x = _norm(_f32(params["final_norm"]), x, cfg.norm_eps)
+    return x @ model._head(params).float()
+
+
+def _teacher_forced(model, params: dict, tokens: torch.Tensor, rows: int) -> torch.Tensor:
+    """``decode_step`` over ``tokens`` (B, S) from an empty cache, the batch
+    padded to ``rows`` with copies of row 0: the B rows' (B, S, V) logits."""
+    b, s = tokens.shape
+    padded = torch.cat([tokens, tokens[:1].expand(rows - b, s)])
+    cache, steps = model.init_cache(rows, s), []
+    for i in range(s):
+        logits, cache = model.decode_step(params, cache, padded[:, i:i + 1], i)
+        steps.append(logits[:b, 0])
+    return torch.stack(steps, 1)
+
+
+@contextlib.contextmanager
+def _routes(calls: list):
+    """Every router call meanwhile: (probabilities, chosen experts) in numpy."""
     from repro_torch.models import layers as L
 
-    k = model.cfg.experts_per_token
-    calls, route = [], L._moe_route
+    route = L._moe_route
 
     def recorded(p, cfg, xt):
         out = route(p, cfg, xt)
@@ -1901,65 +2059,217 @@ def _moe_parity(model, params, b: int = 2, s: int = 8) -> None:
         calls.append((probs.cpu().numpy(), out[1].cpu().numpy()))
         return out
 
-    gen = torch.Generator(device=model.device).manual_seed(SEED + 8)
-    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen, device=model.device)
     L._moe_route = recorded
     try:
-        logits, aux = model.forward(params, {"tokens": tokens})
-        cache = model.init_cache(b, s)
-        steps = []
-        for i in range(s):
-            lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1], i)
-            steps.append(lg[:, 0])
+        yield
     finally:
         L._moe_route = route
-    n = model.cfg.n_layers
-    fwd, dec = calls[:n], calls[n:]  # forward: one call a layer; decode: step-major
-    first_flip, gaps = {}, []  # (row, pos) -> (layer, margin), gaps of rows routed alike
-    for layer in range(n):
-        fp = fwd[layer][0].reshape(b, s, -1)
-        fe = np.sort(fwd[layer][1].reshape(b, s, k), -1)
+
+
+def _mamba_f32(model, params: dict, tag: str, b: int, s: int) -> None:
+    """The hybrid's exact part: its first Mamba layer in f32 at the model's
+    widths, ``mamba_apply`` (the associative scan) against ``mamba_step`` run
+    over the same seeded (B, S, d) sequence from a zero state; the largest
+    difference within ``MAMBA_F32_TOL`` of the output's largest magnitude."""
+    from repro_torch.models import layers as L
+
+    cfg, dev = model.cfg, model.device
+    lp = _f32({k: v[0, 0] for k, v in params["groups"]["mamba"].items()})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    d_in = cfg.ssm_expand * cfg.d_model
+    state = {"h": torch.zeros((b, d_in, cfg.ssm_state_dim), device=dev),
+             "conv": torch.zeros((b, cfg.ssm_conv_dim, d_in), device=dev)}
+    steps = []
+    for i in range(s):
+        y, state = L.mamba_step(lp, cfg, x[:, i:i + 1], state)
+        steps.append(y)
+    full, stepped = L.mamba_apply(lp, cfg, x), torch.cat(steps, 1)
+    err, scale = float((full - stepped).abs().max()), float(full.abs().max())
+    print(f"{tag} one Mamba layer in f32, d_model {cfg.d_model}, d_in {d_in}, N "
+          f"{cfg.ssm_state_dim}, B={b} S={s}: mamba_apply (associative scan) against "
+          f"mamba_step: max_abs_diff={err:.3e} of max |y| {scale:.4f} = {err / scale:.3e} "
+          f"(<= {MAMBA_F32_TOL})")
+    if not err <= MAMBA_F32_TOL * scale:
+        raise SystemExit(f"{tag} mamba_apply and mamba_step differ by {err} in f32, more than "
+                         f"{MAMBA_F32_TOL} of {scale}")
+
+
+@contextlib.contextmanager
+def _stepped_mamba():
+    """Meanwhile every ``mamba_apply`` runs ``mamba_step``'s formulation over
+    the sequence: the window's products summed in f32 oldest first and
+    rounded once, the recurrence a position at a time; each product over
+    all B·S rows at once and the state contraction over all positions at
+    once, as the forward runs them. A decode padded to B·S rows then runs
+    the same operations on the same shapes, so its logits are this
+    forward's bit for bit; :func:`_mamba_f32` holds the formulation to
+    the associative scan."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    scan = L.mamba_apply
+
+    def stepped(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+        s, n, kc = x.shape[1], cfg.ssm_state_dim, cfg.ssm_conv_dim
+        xi, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+        pad, w = F.pad(xi, (0, 0, kc - 1, 0)), params["conv_w"].float()
+        acc = pad[:, :s].float() * w[0]
+        for i in range(1, kc):
+            acc = acc + pad[:, i:i + s].float() * w[i]
+        xi = L._silu(acc.to(x.dtype))
+        bc_dt = xi @ params["x_proj"]
+        bvec, cvec, dt = bc_dt[..., :n], bc_dt[..., n:2 * n], bc_dt[..., 2 * n:]
+        dt = L._softplus(dt.float() + params["dt_bias"])
+        a_bar = torch.exp(dt[..., None] * -torch.exp(params["a_log"]))
+        bx = (dt * xi.float())[..., None] * bvec.float()[:, :, None, :]
+        h, states = torch.zeros_like(a_bar[:, 0]), []
+        for t in range(s):
+            h = a_bar[:, t] * h + bx[:, t]
+            states.append(h)
+        return L._mamba_gate(params, L._mamba_contract(torch.stack(states, 1), cvec), xi, z,
+                             x.dtype)
+
+    L.mamba_apply = stepped
+    try:
+        yield
+    finally:
+        L.mamba_apply = scan
+
+
+def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int = 8) -> dict:
+    """``forward`` against teacher-forced ``decode_step`` on the model's
+    device (the card, or the CPU in the tests), an MoE model at drop-free
+    capacity (``test_decode_parity``'s). The two paths run other product
+    shapes (B·S rows against B), so on a card their bf16 roundings part,
+    and through many layers of random weights that decides raw tolerances
+    and top-1 agreement by the draw. What decides here holds a correct
+    program on every draw and fails a wrong one (``parity_sweep.py``,
+    ``--mutate``):
+
+    1. Exact: decode with its batch padded to the forward's B·S rows gives
+       the forward's logits bit for bit. A hybrid's forward scans where
+       decode steps the recurrence, so here its forward runs each Mamba
+       layer in the step's formulation (:func:`_stepped_mamba`), and the
+       two formulations are held to each other in f32
+       (:func:`_mamba_f32`); the scan's bf16 forward is printed beside.
+    2. Distance: against the forward in f32 (:func:`_f32_forward`), the
+       B-row decode's largest distance within ``F32_RATIO`` times the bf16
+       forward's: neither path approximates the model worse than the other
+       by more than their rounding spread. Over the positions before a
+       row's first routing divergence (any layer, between any two of the
+       three paths): past it the paths compute different routes, and
+       attention and a recurrent state carry that to every later position.
+    3. Routes: where the bf16 forward and decode first route a row apart,
+       at the first layer that does so, at a near-tie: the k-th/(k+1)-th
+       probability margin within twice the largest probability gap between
+       the paths where neither has yet routed that row apart.
+
+    Top-1 agreement and ``test_decode_parity``'s tolerance fractions are
+    printed and decide nothing. A failure raises ``SystemExit``. Returns the
+    distance ratio, the positions compared and the routes parted."""
+    from repro_torch.models.model import Model
+
+    cfg, dev = model.cfg, model.device
+    if cfg.n_experts:
+        model = Model(dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    calls: list = []
+    stepped = _stepped_mamba() if cfg.family == "hybrid" else contextlib.nullcontext()
+    with _routes(calls):
+        with stepped:
+            fwd, aux = model.forward(params, {"tokens": tokens})
+        n = len(calls)  # router calls a pass
+        dec = _teacher_forced(model, params, tokens, b)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        wide = _f32_forward(model, params, tokens).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    padded = _teacher_forced(model, params, tokens, b * s)
+    same = torch.equal(padded, fwd)
+    print(f"{tag} decode padded to the forward's {b * s} product rows equals the forward"
+          f"{' with its Mamba layers stepped' if cfg.family == 'hybrid' else ''} bit for "
+          f"bit: {same}")
+    if not same:
+        raise SystemExit(f"{tag} decode over {b * s} rows differs from the forward's logits")
+    del padded
+    if cfg.family == "hybrid":
+        _mamba_f32(model, params, tag, b, s)
+        scan = model.forward(params, {"tokens": tokens})[0].float().cpu().numpy()
+        print(f"{tag} the forward with its Mamba layers scanned (its convolution summed in "
+              f"bf16, the reference's): largest distance from the f32 forward "
+              f"{np.abs(scan - wide).max():.4f}, from the stepped one "
+              f"{np.abs(scan - fwd.float().cpu().numpy()).max():.4f} (printed, not decided)")
+
+    a, d = fwd.float().cpu().numpy(), dec.float().cpu().numpy()
+    finite = bool(np.isfinite(a).all() and np.isfinite(d).all() and np.isfinite(wide).all()
+                  and np.isfinite(float(aux)))
+    k = cfg.experts_per_token
+    parted = {}  # (row, position) -> (first router call where forward and decode part, margin)
+    f32_parted = set()  # (row, position) the f32 forward routes apart from the bf16 forward
+    gaps = []  # (row, position, call, probability gap) where neither path has parted yet
+    for call in range(n):
+        fp = calls[call][0].reshape(b, s, -1)
+        fe = np.sort(calls[call][1].reshape(b, s, k), -1)
+        we = np.sort(calls[n + s * n + call][1].reshape(b, s, k), -1)
         for i in range(s):
-            dp, de = dec[i * n + layer]
+            dp, de = calls[n + i * n + call]
             for r in range(b):
-                if (r, i) in first_flip:
+                if not np.array_equal(fe[r, i], we[r, i]):
+                    f32_parted.add((r, i))
+                if (r, i) in parted:
                     continue
-                top = np.sort(fp[r, i])[::-1]
                 if not np.array_equal(fe[r, i], np.sort(de[r])):
-                    first_flip[(r, i)] = (layer, float(top[k - 1] - top[k]))
+                    top = np.sort(fp[r, i])[::-1]
+                    parted[(r, i)] = (call, float(top[k - 1] - top[k]))
                 else:
-                    gaps.append((r, i, float(np.abs(fp[r, i] - dp[r]).max())))
-    alike = [(r, i) for r in range(b) for i in range(s) if (r, i) not in first_flip]
-    a = logits.float().cpu().numpy()
-    d = torch.stack(steps, 1).float().cpu().numpy()
-    if 2 * len(alike) < b * s or not np.isfinite(a).all() or not np.isfinite(float(aux)):
-        raise SystemExit(f"MoE forward and decode routed {len(first_flip)} of {b * s} tokens apart "
-                         f"({first_flip}), or gave non-finite values")
-    gap = max(g for r, i, g in gaps if (r, i) in alike)
-    rows, cols = zip(*alike)
-    fa, fd = a[rows, cols], d[rows, cols]
-    top1_all = float((a.argmax(-1) == d.argmax(-1)).mean())
-    same = fa.argmax(-1) == fd.argmax(-1)
-    top2 = np.sort(fa, -1)[:, -2:]  # forward's top two logits of each token
-    tie = top2[:, 1] - top2[:, 0] <= 2 * np.abs(fa - fd).max(-1)
-    top1 = float(same.mean())
-    top1_ties = float((same | tie).mean())
-    print(f"[moe] forward vs decode_step B={b} S={s}, capacity factor {model.cfg.capacity_factor}: "
-          f"{len(alike)} of {b * s} tokens routed alike in all {n} layers; on them "
-          f"max_abs_diff={np.abs(fa - fd).max():.6f}, top1 agreement={top1:.4f}, "
-          f"{top1_ties:.4f} with ties under the two paths' own logit gap counted as agreeing "
-          f"(all tokens: max_abs_diff={np.abs(a - d).max():.6f}, top1={top1_all:.4f}); "
-          f"largest probability gap of the rows routed alike {gap:.6f}; first differing routes "
-          f"(row, position): layer, 2nd-3rd margin {first_flip}; aux={float(aux):.6f}, "
-          f"finite={bool(np.isfinite(a).all())}")
-    np.testing.assert_allclose(fa, fd, rtol=PARITY_RTOL, atol=PARITY_ATOL)
-    if top1_ties < PARITY_TOP1:
-        raise SystemExit(f"MoE top-1 agreement {top1_ties} < {PARITY_TOP1} on the tokens routed "
-                         f"alike, ties counted as agreeing")
-    wide = {t: m for t, (layer, m) in first_flip.items() if m > 2 * gap}
-    if wide:
-        raise SystemExit(f"MoE forward and decode routed tokens apart at margins {wide}, wider "
-                         f"than twice the rounding gap {gap}")
+                    gaps.append((r, i, call, float(np.abs(fp[r, i] - dp[r]).max())))
+
+    def upstream(r: int, i: int, call: int) -> bool:
+        """No earlier position of row r parted before this router call."""
+        return all(c >= call for (r2, j), (c, _) in parted.items() if r2 == r and j < i)
+
+    first = {r: min([i for (r2, i) in (*parted, *f32_parted) if r2 == r], default=s)
+             for r in range(b)}
+    compared = [(r, i) for r in range(b) for i in range(first[r])]
+    if not compared or not finite:
+        raise SystemExit(f"{tag} every row's routes part at position 0 ({parted}, "
+                         f"{sorted(f32_parted)}), or the logits are not finite")
+    rows, cols = zip(*compared)
+    to_fwd, to_dec = np.abs(a - wide)[rows, cols], np.abs(d - wide)[rows, cols]
+    ratio = float(to_dec.max() / to_fwd.max()) if to_fwd.max() else float(to_dec.max() > 0) * np.inf
+    top1 = float((a.argmax(-1) == d.argmax(-1)).mean())
+    within = np.isclose(d, a, rtol=PARITY_RTOL, atol=PARITY_ATOL).mean(axis=(0, 2))
+    by_pos = lambda x: [round(float(v), 4) for v in x.max(axis=(0, 2))]  # noqa: E731
+    print(f"{tag} forward vs decode_step B={b} S={s}: max_abs_diff by position "
+          f"{by_pos(np.abs(a - d))}, within rtol {PARITY_RTOL} atol {PARITY_ATOL} by position "
+          f"{[round(float(x), 4) for x in within]}, top1 agreement {top1:.4f} (printed, not "
+          f"decided); aux={float(aux):.6f}, finite={finite}")
+    print(f"{tag} against the f32 forward (max_memory_allocated while it ran={peak} B) over "
+          f"the {len(compared)} of {b * s} positions before each row's first routing "
+          f"divergence: the bf16 forward's largest distance {to_fwd.max():.4f}, the {b}-row "
+          f"decode's {to_dec.max():.4f} = {ratio:.4f}x (<= {F32_RATIO}); top1 with f32: forward "
+          f"{(a.argmax(-1) == wide.argmax(-1)).mean():.4f}, decode "
+          f"{(d.argmax(-1) == wide.argmax(-1)).mean():.4f}")
+    if ratio > F32_RATIO:
+        raise SystemExit(f"{tag} the decode lies {ratio}x as far from the f32 forward as the "
+                         f"forward does (> {F32_RATIO})")
+    judged = {t: m for t, (call, m) in parted.items() if upstream(*t, call)}
+    if n:
+        gap = max((g for r, i, call, g in gaps if upstream(r, i, call)), default=0.0)
+        wide_flips = {t: m for t, m in judged.items() if m > 2 * gap}
+        print(f"{tag} routes over {n} router calls a pass, capacity factor "
+              f"{model.cfg.capacity_factor}: forward and decode part {len(parted)} of {b * s} "
+              f"tokens (first call, k-th/(k+1)-th margin: {parted}), {len(judged)} of them "
+              f"before any earlier position of their row parted; the f32 forward parts "
+              f"{len(f32_parted)}; largest probability gap before any parting {gap:.6f}")
+        if wide_flips:
+            raise SystemExit(f"{tag} forward and decode routed tokens apart at margins "
+                             f"{wide_flips}, wider than twice the rounding gap {gap}")
+    return {"ratio": ratio, "compared": len(compared), "parted": len(parted),
+            "judged": len(judged), "f32_parted": len(f32_parted)}
 
 
 def _masked_fused_step(model, params, cache: dict) -> None:
@@ -2022,8 +2332,6 @@ def phase_moe(smi: str) -> dict:
     fused and host-sampled on the same requests, with greedy_sample and
     top_k counted from 0 just before the fused run and read just after;
     ``launch.serve``'s loop in its three modes. Frees the model at the end."""
-    import dataclasses
-
     from repro_torch.configs import get
     from repro_torch.kernels.sampling import greedy_sample, top_k
     from repro_torch.models.model import Model
@@ -2038,7 +2346,7 @@ def phase_moe(smi: str) -> dict:
           f"{cfg.n_experts} experts top-{cfg.experts_per_token}, vocab {cfg.vocab_size}, "
           f"capacity factor {cfg.capacity_factor}; {n} parameters, {2 * n / 1e9:.2f} GB in "
           f"bf16 (all {full.n_layers} layers: {2 * full.param_count() / 1e9:.2f} GB)")
-    router = _moe_router_check(smi)
+    router = _router_check(smi, "[moe]", 16, 2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     found = torch.cuda.memory_allocated()
@@ -2053,8 +2361,7 @@ def phase_moe(smi: str) -> dict:
     _masked_fused_step(model, params, model.init_cache(SERVE_BATCH, MOE_CACHE))
     print("[moe] one masked fused decode step under set_sync_debug_mode('error'): no read-back")
 
-    _moe_parity(Model(dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)),
-                      device="cuda"), params)
+    _decode_parity(model, params, "[moe]")
 
     # the serving engine, fused then host-sampled
     reqs = _requests(cfg, MOE_REQUESTS, MOE_PROMPT)
@@ -2169,71 +2476,12 @@ def _head_greedy_check(smi: str, tag: str, v: int, seed: int) -> dict:
             f"ms_{sfx}_b1": one["ms"]["ms"], f"library_ms_{sfx}_b1": one["ms"]["library_ms"]}
 
 
-def _f32_tree(tree: dict) -> dict:
-    return {k: _f32_tree(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
-
-
-def _ssm_parity(model, params, b: int = 2, s: int = 8) -> None:
-    """``forward`` against teacher-forced ``decode_step``. The forward runs
-    its products over B·S rows, a decode step over B; cuBLAS takes other
-    kernels for the two, whose bf16 roundings part, and the recurrent
-    state carries each step's difference on (it grows by ≈ 0.08 a
-    position at full width). So the check is three-fold: decode with its
-    batch padded to B·S rows (the forward's product shapes) must give the
-    forward's logits bit for bit; at B rows top-1 must agree with the
-    forward's on at least 0.9 of the tokens (the tolerance fractions are
-    printed position by position); and, against the same forward run in
-    f32 (the weights cast up, TF32 off), the B-row decode's largest
-    distance must stay within ``SSM_F32_RATIO`` times the bf16 forward's:
-    neither path may be a worse approximation of the model than the other
-    by more than their rounding spread."""
-    gen = torch.Generator(device=model.device).manual_seed(SEED + 1)
-    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen, device=model.device)
-    full = model.forward(params, {"tokens": tokens})[0]
-
-    def decode(rows: int) -> torch.Tensor:
-        padded = torch.cat([tokens, tokens[:1].expand(rows - b, s)])
-        cache, steps = model.init_cache(rows, s), []
-        for i in range(s):
-            lg, cache = model.decode_step(params, cache, padded[:, i:i + 1], i)
-            steps.append(lg[:b, 0])
-        return torch.stack(steps, 1)
-
-    if not torch.equal(decode(b * s), full):
-        raise SystemExit(f"ssm decode over {b * s} rows differs from forward's logits")
-    a, d = full.float().cpu().numpy(), decode(b).float().cpu().numpy()
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise SystemExit("the f32 forward needs TF32 off")
-    torch.cuda.reset_peak_memory_stats()
-    wide = _f32_tree(params)
-    exact = model.forward(wide, {"tokens": tokens})[0].cpu().numpy()
-    peak = torch.cuda.max_memory_allocated()
-    del wide
-    torch.cuda.empty_cache()
-    diff = np.abs(a - d)
-    to_f32_fwd, to_f32_dec = np.abs(a - exact), np.abs(d - exact)
-    within = np.isclose(d, a, rtol=PARITY_RTOL, atol=PARITY_ATOL)
-    top1 = float((a.argmax(-1) == d.argmax(-1)).mean())
-    ratio = float(to_f32_dec.max() / to_f32_fwd.max())
-    by_pos = lambda x: [round(float(v), 4) for v in x.max(axis=(0, 2))]  # noqa: E731
-    rms = lambda x: float(np.sqrt((x ** 2).mean()))  # noqa: E731
-    finite = bool(np.isfinite(a).all() and np.isfinite(d).all() and np.isfinite(exact).all())
-    print(f"[ssm] forward vs decode_step B={b} S={s}: decode over {b * s} rows (the forward's "
-          f"product shapes) equals the forward bit for bit; over {b} rows max_abs_diff by "
-          f"position {by_pos(diff)}, within rtol {PARITY_RTOL} atol {PARITY_ATOL} by position "
-          f"{[round(float(x), 4) for x in within.mean(axis=(0, 2))]}, top1 agreement={top1:.4f} "
-          f"(>= {PARITY_TOP1}); finite={finite}")
-    print(f"[ssm] against an f32 forward (max_memory_allocated={peak} B): the bf16 forward's "
-          f"max_abs_diff by position {by_pos(to_f32_fwd)}, rms {rms(to_f32_fwd):.4f}; the "
-          f"{b}-row decode's {by_pos(to_f32_dec)}, rms {rms(to_f32_dec):.4f}; largest "
-          f"{to_f32_dec.max():.4f} = "
-          f"{ratio:.4f}x the forward's {to_f32_fwd.max():.4f} (<= {SSM_F32_RATIO}); top1 "
-          f"agreement with f32: forward {float((a.argmax(-1) == exact.argmax(-1)).mean()):.4f}, "
-          f"decode {float((d.argmax(-1) == exact.argmax(-1)).mean()):.4f}")
-    if not finite or top1 < PARITY_TOP1 or ratio > SSM_F32_RATIO:
-        raise SystemExit(f"ssm forward and decode: top-1 agreement {top1} < {PARITY_TOP1}, or "
-                         f"the decode {ratio}x as far from the f32 forward as the forward "
-                         f"(> {SSM_F32_RATIO}), or non-finite logits")
+def _random_cache(cache: dict, seed: int) -> dict:
+    """Fills every leaf with seeded normal values, in place; returns a copy."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for v in cache.values():
+        v.copy_(torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype))
+    return {k: v.clone() for k, v in cache.items()}
 
 
 def phase_ssm(smi: str) -> dict:
@@ -2275,10 +2523,7 @@ def phase_ssm(smi: str) -> dict:
     # one masked fused step over a random state: no read-back, slot 3 frozen
     b = SERVE_BATCH
     cache = model.init_cache(b, SERVE_CACHE)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    for v in cache.values():
-        v.copy_(torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype))
-    before = {k: v.clone() for k, v in cache.items()}
+    before = _random_cache(cache, SEED + 10)
     _masked_fused_step(model, params, cache)
     for k, v in cache.items():
         if not torch.equal(v[:, 3], before[k][:, 3]) or torch.equal(v[:, 0], before[k][:, 0]):
@@ -2290,7 +2535,7 @@ def phase_ssm(smi: str) -> dict:
           f"read-back; the masked row's s, shift_tm and shift_cm bit-identical, the live rows' "
           f"changed")
 
-    _ssm_parity(model, params)
+    _decode_parity(model, params, "[ssm]")
     torch.cuda.reset_peak_memory_stats()  # from here on: serving
 
     # the serving engine, fused then host-sampled
@@ -2340,6 +2585,156 @@ def phase_ssm(smi: str) -> dict:
     _free_model("[ssm]", found)
     print(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
     return {"greedy_sample": launches, **greedy}
+
+
+def phase_cut(smi: str, arch: str, tag: str, cut: dict, sfx: str) -> dict:
+    """A configuration one card cannot hold whole, at its published widths
+    cut in depth (``CUTS``), seeded weights drawn on the card:
+    greedy_sample at the head's shapes; the router's top_k at (4, E) where
+    no earlier phase checked that shape; the forward-vs-decode check
+    (:func:`_decode_parity`); one masked eager fused step under
+    ``set_sync_debug_mode("error")``, the masked row's cache bit-identical
+    after it; the serving engine fused and host-sampled on the same
+    requests, with greedy_sample and top_k counted from 0 just before the
+    fused run and read just after (a hybrid also serves each request's copy
+    in a slot the original freed, which must start afresh);
+    ``launch.serve``'s three modes, the fused step beside the bound of
+    reading its weights once; one eager step profiled. Frees the model at
+    the end. Returns the record's counts and times under ``sfx``."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.sampling import greedy_sample, top_k
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    full = get(arch)
+    cfg = dataclasses.replace(full, **cut)
+    n = cfg.param_count()
+    mamba = (f", Mamba d_in {cfg.ssm_expand * cfg.d_model} state {cfg.ssm_state_dim} conv "
+             f"{cfg.ssm_conv_dim}" if cfg.family == "hybrid" else "")
+    print(f"{tag} {arch} ({cfg.family}): depth cut from {full.n_layers} layers to "
+          f"{', '.join(f'{k} = {v}' for k, v in cut.items())}; widths as published: d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}, vocab "
+          f"{cfg.vocab_size}{mamba}; {n} parameters by ModelConfig.param_count(), "
+          f"{2 * n / 1e9:.2f} GB in bf16 (whole: {full.param_count()}, "
+          f"{2 * full.param_count() / 1e9:.2f} GB)")
+    greedy = _head_greedy_check(smi, tag, cfg.vocab_size, SEED + 30 + len(cut))
+    greedy = {key.replace(tag.strip("[]"), sfx): v for key, v in greedy.items()}
+    router = {}
+    if (cfg.n_experts, cfg.experts_per_token) != (16, 2):  # [moe] checked (4, 16) at k = 2
+        router = _router_check(smi, tag, cfg.n_experts, cfg.experts_per_token,
+                               f"router_{sfx}_")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
+    ti = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_tree, nbytes = _tree_bytes(params)
+    print(f"{tag} seeded weights drawn on the card in {time.perf_counter() - ti:.2f} s: "
+          f"{n_tree} parameters in the tree, {sum(nbytes.values())} B "
+          f"({sum(nbytes.values()) / 1e9:.2f} GB) by top-level name "
+          f"{ {k: v for k, v in nbytes.items()} }; memory_allocated="
+          f"{torch.cuda.memory_allocated()} B, max_memory_allocated while drawing="
+          f"{torch.cuda.max_memory_allocated()} B of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B")
+
+    _decode_parity(model, params, tag)
+
+    # one masked fused step over a random cache: no read-back, slot 3 frozen
+    b = SERVE_BATCH
+    cache = model.init_cache(b, CUT_CACHE)
+    before = _random_cache(cache, SEED + 10)
+    _masked_fused_step(model, params, cache)
+    for key, v in cache.items():
+        ax = 2 if key in ("h", "conv") else 1  # the batch axis
+        if not torch.equal(v.select(ax, 3), before[key].select(ax, 3)):
+            raise SystemExit(f"{tag} the masked fused step changed the masked row's {key!r}")
+    del cache, before
+    print(f"{tag} one masked fused decode step under set_sync_debug_mode('error'): no "
+          f"read-back; the masked row's {', '.join(model.init_cache(1, 1))} bit-identical")
+
+    # the serving engine, fused then host-sampled
+    g, _, n_moe = model._groups() if cfg.family == "hybrid" else (cfg.n_layers, 0, 1)
+    routers = g * n_moe  # router calls a step
+    reqs = _requests(cfg, CUT_REQUESTS, CUT_PROMPT)
+    _serve(model, params, reqs[:1], "fused", max_new=2, tag=tag)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    greedy_sample.launches = top_k.launches = 0
+    fused = _serve(model, params, reqs, "fused", max_new=CUT_NEW, tag=tag)
+    counted = {"greedy_sample": greedy_sample.launches, "top_k": top_k.launches}
+    eager_steps = fused["decode_launches"] + 8 * fused["prefill_launches"]
+    print(f"{tag} launches in the fused run: {counted}; {fused['decode_launches']} fused decode "
+          f"launches, {fused['prefill_launches']} prefill launches of 8 steps, so "
+          f"{eager_steps} eager steps of {routers} routers; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B ({smi})")
+    if counted["greedy_sample"] != fused["decode_launches"] or counted["greedy_sample"] == 0:
+        raise SystemExit(f"{tag} the engine did not launch greedy_sample once per fused decode "
+                         f"launch")
+    if counted["top_k"] != routers * eager_steps:
+        raise SystemExit(f"{tag} the engine launched top_k {counted['top_k']} times for "
+                         f"{eager_steps} eager steps of {routers} routers")
+    for uid, _ in reqs:
+        if len(fused["streams"][uid]) != CUT_NEW:
+            raise SystemExit(f"{tag} request {uid} finished with {len(fused['streams'][uid])} "
+                             f"tokens")
+    host = _serve(model, params, reqs, "host", max_new=CUT_NEW, tag=tag)
+    if host["streams"] != fused["streams"]:
+        raise SystemExit(f"{tag} fused and host sampling gave different token streams")
+    print(f"{tag} fused and host token streams are bit-identical; first stream "
+          f"{fused['streams'][0][:8]}")
+    if cfg.family == "hybrid":
+        # each copy takes a slot its original freed: its Mamba state must start from zero.
+        # At drop-free capacity, else a stream depends on which rows share its experts' slots
+        copies = [(uid + len(reqs), prompt) for uid, prompt in reqs]
+        free = Model(dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)),
+                     device="cuda")
+        reused = _serve(free, params, reqs + copies, "fused", max_new=CUT_NEW, tag=tag)
+        for uid, _ in reqs:
+            if reused["streams"][uid] != reused["streams"][uid + len(reqs)]:
+                raise SystemExit(f"{tag} request {uid + len(reqs)} in a reused slot did not "
+                                 f"give the stream of request {uid} in a fresh one")
+        print(f"{tag} at drop-free capacity, {len(copies)} copies of the requests, each in a "
+              f"slot its original freed, give the originals' streams bit for bit")
+
+    modes = phase_serve_modes(model, params, smi, steps=CUT_STEPS, cache_len=CUT_CACHE,
+                              tag=tag, profiled=())
+    weights = _weight_bytes(model, nbytes, b)
+    state = sum(v.numel() * v.element_size() for key, v in model.init_cache(b, 1).items()
+                if key in ("h", "conv"))
+    kv = _kv_bytes(cfg, b, (SERVE_FUSE + CUT_STEPS) // 2)
+    bound = _bound_ms(weights + kv + 2 * state, 2.0 * b * weights / 2, BF16_FLOPS)
+    fused_ms = modes["fused"]["device_ms"]
+    print(f"{tag} a fused step's bound at B={b}: {weights + kv + 2 * state} B (weights "
+          f"{weights} B, every expert's included; the K/V rows up to the timed loop's mean "
+          f"position {kv} B; the Mamba state read and written {2 * state} B) = "
+          f"{bound[0]:.4f} ms ({bound[1]}); fused {fused_ms:.4f} ms a step = "
+          f"{fused_ms / bound[0]:.2f}x it ({smi})")
+
+    # one eager decode step at position CUT_STEPS, profiled
+    cache = model.init_cache(b, CUT_CACHE)
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((b,), CUT_STEPS, dtype=torch.int32, device="cuda")
+
+    def step() -> None:
+        model.decode_and_sample(params, cache, ones, torch.zeros_like(pos), ~live, pos, live)
+
+    step()
+    step_ms = _events_ms(step, 3)
+    prof = _profiled(lambda: [step() for _ in range(3)], 3, top=6)
+    print(f"{tag} one eager fused decode step B={b} at position {CUT_STEPS}: "
+          f"{prof['ops']:.1f} device ops, busy {prof['busy_ms']:.4f} ms (torch.profiler, mean of "
+          f"3) = {prof['busy_ms'] / bound[0]:.2f}x the bound, {step_ms:.4f} ms by CUDA events "
+          f"around 3 eagerly issued steps; most device time a step: {_top(prof)} ({smi})")
+    del model, params, cache
+    _free_model(tag, found)
+    print(f"{tag} phase took {time.perf_counter() - t0:.1f} s")
+    return {"greedy_sample": counted["greedy_sample"], "top_k": counted["top_k"],
+            **greedy, **router}
 
 
 def _flat_shapes(shapes: list) -> list:
@@ -2396,8 +2791,6 @@ def phase_encdec(smi: str) -> dict:
     fused decode step profiled by operator and input shape beside its
     bound, with no copy of the cross K/V. Frees the model at the end, and
     checks that it is gone."""
-    import dataclasses
-
     from repro_torch.configs import get
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.models.layers import attention_chunk
@@ -2608,17 +3001,20 @@ def _draw(tag: str, cfg, layers: tuple) -> tuple:
 
 
 def _weight_bytes(model, nbytes: dict, b: int) -> int:
-    """Bytes of weights a decode step of ``b`` rows must read: the trunk,
-    the final norm and the head once, and ``b`` rows of the embedding (all
-    of it where the head is the tied embedding)."""
+    """Bytes of weights a decode step of ``b`` rows must read: the trunk
+    (``layers``, a hybrid's ``groups``; every MoE expert, whose buffer the
+    reference's formulation computes whether routed to or not), the final
+    norm and the head once, and ``b`` rows of the embedding (all of it
+    where the head is the tied embedding)."""
     cfg = model.cfg
     head = nbytes["embed"] if cfg.tie_embeddings else nbytes["head"] + b * cfg.d_model * 2
-    return nbytes["layers"] + nbytes["final_norm"] + head
+    return nbytes.get("layers", 0) + nbytes.get("groups", 0) + nbytes["final_norm"] + head
 
 
 def _kv_bytes(cfg, b: int, rows: int) -> int:
-    """Bytes of the K/V rows ``b`` slots read at ``rows`` positions."""
-    return 2 * cfg.n_layers * b * rows * cfg.n_kv_heads * cfg.head_dim_ * 2
+    """Bytes of the K/V rows ``b`` slots read at ``rows`` positions, over
+    the attention layers (a hybrid's one a group)."""
+    return 2 * cfg.n_attn_layers() * b * rows * cfg.n_kv_heads * cfg.head_dim_ * 2
 
 
 def phase_vlm(smi: str) -> dict:
@@ -2632,8 +3028,6 @@ def phase_vlm(smi: str) -> dict:
     greedy_sample counted from 0 just before the fused run and read just
     after; one eager fused decode step profiled beside its bound. Frees the
     model at the end, and checks that it is gone."""
-    import dataclasses
-
     from repro_torch.configs import get
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.models.model import Model, _norm
@@ -2794,8 +3188,6 @@ def _int8_long_cache(model, params, nbytes: dict, smi: str) -> int:
     formulation's (besides, the whole cache dequantized to bf16, written
     and read, a step); one eager decode step profiled. Returns the fused
     run's greedy_sample launches."""
-    import dataclasses
-
     from repro_torch.kernels.sampling import greedy_sample
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import Model
@@ -2947,8 +3339,6 @@ def _remat_table(cfg, params: dict, smi: str) -> None:
     gradients the update receives bit for bit ``"none"``'s where two
     ``"none"`` steps are bit for bit with each other, else within twice
     their distance."""
-    import dataclasses
-
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.model import Model
@@ -3073,7 +3463,6 @@ def phase_train(smi: str) -> dict:
     through the engine, fused (greedy_sample counted from 0 just before)
     and host-sampled, with bit-identical streams. Frees the model at the
     end."""
-    import dataclasses
     import shutil
 
     from repro_torch.checkpoint import CheckpointStore
@@ -3206,6 +3595,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = phase_moe(smi)
     ssm = phase_ssm(smi)
+    cuts = {sfx: phase_cut(smi, arch, tag, cut, sfx) for arch, tag, cut, sfx in CUTS}
     encdec = phase_encdec(smi)
     vlm = phase_vlm(smi)
     dense = phase_dense(smi)
@@ -3220,6 +3610,11 @@ def main() -> None:
             record["launches_ssm"] = ssm.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], ssm.pop("max_abs_err"))
             record.update(ssm)  # the RWKV head's shape: times, bound and cluster
+            for sfx, cut in cuts.items():  # jamba's and kimi-k2's heads
+                record[f"launches_{sfx}"] = cut.pop("greedy_sample")
+                record["max_abs_err"] = max(record["max_abs_err"], cut.pop("max_abs_err"))
+                record.update({k: v for k, v in cut.items() if not k.startswith(("top_k",
+                                                                                  "router"))})
             record["launches_encdec"] = encdec.pop("greedy_sample")
             record["max_abs_err"] = max(record["max_abs_err"], encdec.pop("max_abs_err"))
             record.update(encdec)  # the whisper head's shape: times, bound and cluster
@@ -3235,6 +3630,9 @@ def main() -> None:
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")
             record.update(moe)  # the router shape's times and bound
+            for sfx, cut in cuts.items():  # jamba's routers and kimi-k2's, with its shape's times
+                record[f"launches_{sfx}"] = cut.pop("top_k")
+                record.update({k: v for k, v in cut.items() if k.startswith("router")})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": records}))
     print(smi)

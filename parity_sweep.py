@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""How often the weight-dependent parity checks of ``chip_smoke.py`` pass,
-over seeded weight draws, on one NVIDIA GPU.
+"""How often the forward-vs-decode check of ``chip_smoke.py`` passes, over
+seeded weight draws, on one NVIDIA GPU; and, with ``--mutate``, how often
+it catches a decode made wrong on purpose.
 
-    python3 parity_sweep.py [--seeds 22] [--per-layer]
+    python3 parity_sweep.py [--seeds 22] [--per-layer] [--mutate]
 
-For each seed it draws phi3.5-moe-42b-a6.6b (16 of its 32 layers, at
-drop-free capacity) and rwkv6-7b whole on the card, as ``chip_smoke.py``'s
-``[moe]`` and ``[ssm]`` phases do at seed 0, runs their forward-vs-decode
-checks (``_moe_parity``, ``_ssm_parity``) on them and prints ``pass`` or
-the first line of the failure, then the pass counts. ``--per-layer`` draws
-each stacked matrix a layer at a time, one ``torch.randn`` a layer (other
-numbers from the same seed than ``layers._dense_init``'s stacked stream).
-Exits non-zero without a CUDA device.
+For each seed it draws each family's configuration on the card, as
+``chip_smoke.py`` does at seed 0: phi3.5-moe-42b-a6.6b (``moe``, 16 of its
+32 layers), rwkv6-7b (``ssm``, whole), jamba-1.5-large-398b (``hybrid``,
+one group of 4 layers) and kimi-k2-1t-a32b (``kimi-k2``, 1 of 61 layers),
+every width as published. It runs ``chip_smoke._decode_parity`` on each and
+prints ``pass`` or the first line of the failure, then the pass counts.
+``--per-layer`` draws each stacked matrix a layer at a time, one
+``torch.randn`` a layer (other numbers from the same seed than
+``layers._dense_init``'s stacked stream). ``--mutate`` runs the check under
+each fault the family's decode has a place for (``chip_smoke.faults_of``:
+a KV cache read one row late, a recurrent state never written), in every
+decode step and in the B-row steps alone (``rows``: the padded decode right,
+so the B-row rules must catch it), and counts the seeds it catches, which
+must be all of them. Exits non-zero without a
+CUDA device, and when the check fails a correct model or passes a wrong
+one on any seed.
 """
 
 from __future__ import annotations
@@ -28,6 +37,10 @@ import torch
 
 import chip_smoke
 
+FAMILIES = {"moe": ("phi3.5-moe-42b-a6.6b", {"n_layers": chip_smoke.MOE_LAYERS}),
+            "ssm": (chip_smoke.SSM_ARCH, {}),
+            **{tag.strip("[]"): (arch, cut) for arch, tag, cut, _ in chip_smoke.CUTS}}
+
 
 def _per_layer(gen, shape, scale_axis=0, stack=0):
     """A stack drawn one ``torch.randn`` a layer."""
@@ -37,22 +50,25 @@ def _per_layer(gen, shape, scale_axis=0, stack=0):
     return torch.stack([_per_layer(gen, shape, scale_axis) for _ in range(stack)])
 
 
-def _outcome(check, model, params) -> str:
+def _outcome(model, params, family: str, fault: str | None, most_rows: int | None) -> str:
+    """``pass`` and the check's numbers, or ``FAIL`` and the first line of
+    the failure."""
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            check(model, params)
+        with contextlib.redirect_stdout(io.StringIO()), chip_smoke.fault(fault, most_rows):
+            stats = chip_smoke._decode_parity(model, params, f"[{family}]")
     except (AssertionError, SystemExit) as e:
-        return "FAIL " + (str(e).strip().splitlines() or [""])[0][:120]
-    return "pass"
+        return "FAIL " + (str(e).strip().splitlines() or [""])[0][:160]
+    return f"pass {stats}"
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, default=22)
     p.add_argument("--per-layer", action="store_true")
+    p.add_argument("--mutate", action="store_true")
     args = p.parse_args(argv)
     _, smi = chip_smoke.phase_device()
-    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 forward of _ssm_parity
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 forward of _decode_parity
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.phase_build()
 
@@ -62,22 +78,31 @@ def main(argv=None) -> None:
 
     if args.per_layer:
         L._dense_init = _per_layer
-    moe = dataclasses.replace(get(chip_smoke.MOE_ARCH), n_layers=chip_smoke.MOE_LAYERS)
-    moe = dataclasses.replace(moe, capacity_factor=float(moe.n_experts))
-    passed = {}
-    for family, cfg, check in (("moe", moe, chip_smoke._moe_parity),
-                               ("ssm", get(chip_smoke.SSM_ARCH), chip_smoke._ssm_parity)):
+    counts, wrong = {}, 0
+    for family in FAMILIES:
+        arch, cut = FAMILIES[family]
+        cfg = dataclasses.replace(get(arch), **cut)
+        faults = ([(f, rows) for f in chip_smoke.faults_of(cfg)
+                   for rows in (None, chip_smoke.PARITY_ROWS)] if args.mutate else [(None, None)])
         for seed in range(args.seeds):
             model = Model(cfg, device="cuda")
             params = model.init(seed)
-            outcome = _outcome(check, model, params)
-            passed[family] = passed.get(family, 0) + (outcome == "pass")
-            print(f"[sweep] {family} seed {seed}: {outcome}", flush=True)
+            for fault, most_rows in faults:
+                outcome = _outcome(model, params, family, fault, most_rows)
+                key = family if fault is None else f"{family} {fault}"
+                if most_rows:
+                    key += " rows"
+                caught = outcome.startswith("FAIL") == (fault is not None)
+                counts[key] = counts.get(key, 0) + caught
+                wrong += not caught
+                print(f"[sweep] {key} seed {seed}: {outcome}", flush=True)
             del model, params
             gc.collect()
             torch.cuda.empty_cache()
     draw = "one torch.randn a layer" if args.per_layer else "layers._dense_init"
-    print(f"[sweep] draws by {draw}: passed of {args.seeds} seeds: {passed} ({smi})")
+    what = "faults caught" if args.mutate else "passed"
+    print(f"[sweep] draws by {draw}: {what} of {args.seeds} seeds: {counts} ({smi})")
+    return 1 if wrong else 0
 
 
 if __name__ == "__main__":

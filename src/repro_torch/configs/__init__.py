@@ -1,16 +1,17 @@
 """Architecture registry of the port: the configurations it can run.
 
-The reference registry (``repro.configs``) holds eleven architectures and
-the paper-native LM; the port adds each one when its model family is
-ported. ``ARCHS`` holds the dense qwen2-0.5b, phi4-mini-3.8b, minitron-4b
-and qwen2.5-32b, the MoE phi3.5-moe-42b-a6.6b, the RWKV-6 (ssm) rwkv6-7b,
-the encoder-decoder (encdec) whisper-medium and the vision-language (vlm)
-phi-3-vision-4.2b; the front ends of the last two are stubs in both
-packages (the encoder takes precomputed frame embeddings, the vlm
+Every configuration of the reference's registry (``repro.configs``), in
+its order: ``ARCHS`` holds the hybrid jamba-1.5-large-398b, the MoE
+phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b, the dense phi4-mini-3.8b,
+qwen2.5-32b, minitron-4b and qwen2-0.5b, the vision-language (vlm)
+phi-3-vision-4.2b, the encoder-decoder (encdec) whisper-medium and the
+RWKV-6 (ssm) rwkv6-7b; the front ends of the vlm and the encoder are stubs
+in both packages (the encoder takes precomputed frame embeddings, the vlm
 precomputed patch embeddings). ``EXTRAS`` holds paper-lm-100m, as the
-reference's does. The hybrid jamba-1.5-large-398b and the MoE
-kimi-k2-1t-a32b, which need more than one card, are not ported: such a
-name raises, pointing at ``ROADMAP.md``, where they are queued.
+reference's does. jamba-1.5-large-398b (796 GB of bf16 weights) and
+kimi-k2-1t-a32b (2.08 TB) need many cards whole; one card runs them cut
+in depth (one Jamba group, one kimi-k2 layer), the sharding across cards
+being queued in ``ROADMAP.md``, Queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from repro_torch.models.config import ModelConfig
 
 from . import (
+    jamba_1_5_large_398b,
+    kimi_k2_1t_a32b,
     minitron_4b,
     paper_lm_100m,
     phi3_5_moe_42b_a6_6b,
@@ -32,7 +35,9 @@ from . import (
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (
+        jamba_1_5_large_398b,
         phi3_5_moe_42b_a6_6b,
+        kimi_k2_1t_a32b,
         phi4_mini_3_8b,
         qwen2_5_32b,
         minitron_4b,
@@ -51,6 +56,4 @@ def get(name: str) -> ModelConfig:
         return ARCHS[name]
     if name in EXTRAS:
         return EXTRAS[name]
-    raise KeyError(
-        f"arch {name!r} is not ported (ported: {sorted(ARCHS) + sorted(EXTRAS)}); the "
-        f"configurations that need more than one card are queued in ROADMAP.md, Queue 1")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(EXTRAS)}")

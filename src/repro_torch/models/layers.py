@@ -1,24 +1,27 @@
-"""Neural building blocks of the dense, MoE, RWKV-6 and encoder-decoder
-families, as plain functions on tensors.
+"""Neural building blocks of the dense, MoE, hybrid, RWKV-6 and
+encoder-decoder families, as plain functions on tensors.
 
-The counterpart of ``repro/models/layers.py`` for the layers these
-families run: norms, rotary embedding, attention (causal or not, with or
-without RoPE, self- or cross-attention, with a per-slot KV cache), the
-SwiGLU and GELU MLPs, and the top-k token-choice MoE MLP with its
-sort-based, capacity-limited dispatch; and for RWKV-6 (Finch): the time mix
-with its matrix-valued recurrent state and data-dependent decay, and the
-squared-ReLU channel mix. Parameters are plain dicts of tensors with the
-reference's names and layouts, so a test can load the reference's weights
-and compare like with like.
+The counterpart of ``repro/models/layers.py``: norms, rotary embedding,
+attention (causal or not, with or without RoPE, self- or cross-attention,
+with a per-slot KV cache), the SwiGLU and GELU MLPs, and the top-k
+token-choice MoE MLP with its sort-based, capacity-limited dispatch; for
+Jamba (the hybrid family), the Mamba selective SSM: a depthwise causal
+convolution, an input-dependent ``dt``, ``B`` and ``C``, and the state
+recurrence run as an associative scan over the sequence (in chunks with
+``cfg.ssm_chunk``) or a step at a time in decode; and for RWKV-6 (Finch):
+the time mix with its matrix-valued recurrent state and data-dependent
+decay, and the squared-ReLU channel mix. Parameters are plain dicts of
+tensors with the reference's names and layouts, so a test can load the
+reference's weights and compare like with like.
 
 Compute dtype is bf16, with the same f32 islands as the reference: norm and
 rope math in f32, attention scores and softmax in f32 and then cast to bf16,
-the MoE router in f32, the RWKV decay and state in f32. The serving cache
-may hold K/V as int8 with a bf16 scale a row and head (``quantize_kv``),
-and full-sequence passes may run the online-softmax ``chunked_attention``
-(``cfg.attn_chunk``), each as the reference computes it. The MoE
-``shard_map`` all-to-all and Mamba are not ported yet (``ROADMAP.md``,
-Queue 1).
+the MoE router in f32, the Mamba ``dt``, decay and state in f32, the RWKV
+decay and state in f32. The serving cache may hold K/V as int8 with a bf16
+scale a row and head (``quantize_kv``), and full-sequence passes may run
+the online-softmax ``chunked_attention`` (``cfg.attn_chunk``), each as the
+reference computes it. The MoE ``shard_map`` all-to-all is not ported
+(``ROADMAP.md``, Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -367,7 +370,7 @@ def attention_apply(
     elif causal and kv is None:
         mask = torch.ones((s, t), dtype=torch.bool, device=x.device).tril()
         scores = torch.where(mask[None, None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)  # bf16 as the reference's; f32 in f32
     out = gqa_combine(probs, v)
     return out.reshape(b, s, -1) @ params["wo"]
 
@@ -420,7 +423,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "wg" not in params:  # GELU (whisper's two-matrix MLP)
         return _gelu(x @ params["wi"]) @ params["wo"]
-    return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    return (_silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
 
 
 # bf16 values of the tanh approximation's constants, as ``jax.nn.gelu`` casts
@@ -519,7 +522,7 @@ def _moe_dispatch(cfg: ModelConfig, xt: torch.Tensor, top_p: torch.Tensor,
 def _moe_ffn(params: dict, buf: torch.Tensor) -> torch.Tensor:
     h = torch.einsum("ecd,edf->ecf", buf, params["wg"])
     g = torch.einsum("ecd,edf->ecf", buf, params["wi"])
-    return torch.einsum("ecf,efd->ecd", F.silu(h) * g, params["wo"])
+    return torch.einsum("ecf,efd->ecd", _silu(h) * g, params["wo"])
 
 
 def _moe_combine(cfg: ModelConfig, yb: torch.Tensor, se, sp, st, slot, keep,
@@ -552,6 +555,167 @@ def moe_apply(params: dict, cfg: ModelConfig,
     yb = _moe_ffn(params, buf)
     out = _moe_combine(cfg, yb, se, sp, st, slot, keep, t, d)
     return out.reshape(b, s, d), aux
+
+
+# --------------------------------------------------------------------------
+# Mamba (selective SSM): Jamba's mixer
+# --------------------------------------------------------------------------
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, stack: int) -> dict:
+    """The reference's Mamba parameters under a leading ``stack`` axis:
+    bf16 ``in_proj`` (d, 2·d_in), ``conv_w`` (K, d_in), ``x_proj``
+    (d_in, 2N + 1) and ``out_proj`` (d_in, d), each N(0, 1/fan_in); f32
+    ``dt_bias`` zeros, ``a_log`` = log(1 … N) on every channel, ``d_skip``
+    ones."""
+    d = cfg.d_model
+    d_in, n = cfg.ssm_expand * d, cfg.ssm_state_dim
+    dev = gen.device
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * d_in), stack=stack),
+        "conv_w": _dense_init(gen, (cfg.ssm_conv_dim, d_in), stack=stack),
+        "x_proj": _dense_init(gen, (d_in, 2 * n + 1), stack=stack),  # -> B, C, dt
+        "dt_bias": torch.zeros((stack, d_in), dtype=torch.float32, device=dev),
+        "a_log": a_log.expand(stack, d_in, n).contiguous(),
+        "d_skip": torch.ones((stack, d_in), dtype=torch.float32, device=dev),
+        "out_proj": _dense_init(gen, (d_in, d), stack=stack),
+    }
+
+
+def _mamba_scan_combine(left: tuple, right: tuple) -> tuple:
+    """(a1, b1) then (a2, b2): the recurrence h = a·h + b composed."""
+    a1, b1 = left
+    a2, b2 = right
+    return a2 * a1, a2 * b1 + b2
+
+
+def _along(x: torch.Tensor, axis: int, start: int, stop: int | None = None,
+           step: int = 1) -> torch.Tensor:
+    return x[(slice(None),) * axis + (slice(start, stop, step),)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor, axis: int) -> torch.Tensor:
+    """even[0], odd[0], even[1], … along ``axis`` (``even`` may be one longer)."""
+    pairs = torch.stack([_along(even, axis, 0, odd.shape[axis]), odd], axis + 1)
+    out = pairs.flatten(axis, axis + 1)
+    if even.shape[axis] > odd.shape[axis]:
+        out = torch.cat([out, _along(even, axis, -1)], axis)
+    return out
+
+
+def associative_scan(fn, elems: tuple, axis: int) -> tuple:
+    """``lax.associative_scan(fn, elems, axis=axis)``, combining the same
+    elements in the same order: pairs of neighbours reduced, the half-length
+    scan by recursion, then each even element from the odd prefix before it.
+    With the reference's order the f32 Mamba state matches its own to
+    within f32 rounding; a sequential loop sums in another order."""
+    n = elems[0].shape[axis]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(_along(e, axis, 0, -1, 2) for e in elems),
+                 tuple(_along(e, axis, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, axis)
+    before = tuple(_along(e, axis, 0, -1) for e in odd) if n % 2 == 0 else odd
+    even = fn(before, tuple(_along(e, axis, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([_along(e, axis, 0, 1), r], axis) for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, axis) for e, o in zip(even, odd))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: max(x, 0) + log1p(e^-|x|)
+    (``F.softplus`` returns x itself above its threshold of 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _mamba_gate(params: dict, y: torch.Tensor, xi: torch.Tensor, z: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The skip through ``d_skip``, the SiLU gate of ``z`` in f32, the cast
+    back and ``out_proj``."""
+    y = y + xi.float() * params["d_skip"]
+    return (y * _silu(z.float())).to(dtype) @ params["out_proj"]
+
+
+def _mamba_contract(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The reference's ``einsum(..."dn,...n->...d")`` of the f32 state with
+    ``C``, as an elementwise product and a sum over N: never a product that
+    a TF32 switch could send through the tensor cores."""
+    return torch.sum(h * c.float()[..., None, :], dim=-1)
+
+
+def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training/prefill over (B, S, d) from a zero state. The convolution is
+    the reference's Python ``sum`` of K products, each add rounded in the
+    activations' dtype; ``dt`` is one column put through softplus in f32
+    and broadcast over d_in; the state runs as one :func:`associative_scan`
+    over S, or with ``cfg.ssm_chunk`` (when it divides S and S exceeds it;
+    else, as the reference, silently the one scan) as a loop over chunks
+    carrying the (B, d_in, N) state, the scan inside each. The one scan
+    holds (B, S, d_in, N) f32 tensors: 268 MB each at jamba's widths, B = 4
+    and S = 64; the chunks hold (B, chunk, d_in, N)."""
+    b, s, _ = x.shape
+    d_in, n, kc = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim, cfg.ssm_conv_dim
+    xi, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)  # (B, S, d_in) each
+
+    w = params["conv_w"]  # (K, d_in): depthwise causal conv over time
+    pad = F.pad(xi, (0, 0, kc - 1, 0))
+    conv = pad[:, :s] * w[0]
+    for i in range(1, kc):
+        conv = conv + pad[:, i:i + s] * w[i]
+    xi = _silu(conv)
+
+    bc_dt = xi @ params["x_proj"]  # (B, S, 2N+1)
+    bmat, cmat, dt = bc_dt[..., :n], bc_dt[..., n:2 * n], bc_dt[..., 2 * n:]
+    dt = _softplus(dt.float() + params["dt_bias"])  # (B, S, d_in)
+    a = -torch.exp(params["a_log"])  # (d_in, N)
+
+    def prefix(xi_c, dt_c, b_c, h0):
+        """One chunk's states h_t (B, C, d_in, N) from the carried-in h0."""
+        a_bar = torch.exp(dt_c[..., None] * a)
+        bx = (dt_c * xi_c.float())[..., None] * b_c.float()[:, :, None, :]
+        a_acc, h = associative_scan(_mamba_scan_combine, (a_bar, bx), 1)
+        return h + a_acc * h0[:, None]
+
+    h0 = torch.zeros((b, d_in, n), dtype=torch.float32, device=x.device)
+    chunk = cfg.ssm_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        ys = []
+        for t in range(0, s, chunk):
+            part = slice(t, t + chunk)
+            h = prefix(xi[:, part], dt[:, part], bmat[:, part], h0)
+            ys.append(_mamba_contract(h, cmat[:, part]))
+            h0 = h[:, -1]
+        y = torch.cat(ys, 1)
+    else:
+        y = _mamba_contract(prefix(xi, dt, bmat, h0), cmat)
+    return _mamba_gate(params, y, xi, z, x.dtype)
+
+
+def mamba_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               state: dict) -> tuple[torch.Tensor, dict]:
+    """Single-token decode. x: (B, 1, d); state: {"h": (B, d_in, N) f32,
+    "conv": (B, K, d_in)}. Returns (y (B, 1, d), the new state as new
+    tensors): the caller decides which rows of its cache take them. The
+    convolution is the reference's ``einsum`` over the window: products
+    exact in f32, summed in f32 oldest first, rounded once, as XLA's dot
+    does it; elementwise, so a row's bits do not depend on the batch."""
+    n = cfg.ssm_state_dim
+    xi, z = torch.chunk(x[:, 0] @ params["in_proj"], 2, dim=-1)  # (B, d_in)
+    conv = torch.cat([state["conv"][:, 1:], xi[:, None]], dim=1)  # (B, K, d_in)
+    w = params["conv_w"].float()
+    acc = conv[:, 0].float() * w[0]
+    for i in range(1, cfg.ssm_conv_dim):
+        acc = acc + conv[:, i].float() * w[i]
+    xi = _silu(acc.to(x.dtype))
+
+    bc_dt = xi @ params["x_proj"]
+    bvec, cvec, dt = bc_dt[..., :n], bc_dt[..., n:2 * n], bc_dt[..., 2 * n:]
+    dt = _softplus(dt.float() + params["dt_bias"])  # (B, d_in)
+    a_bar = torch.exp(dt[..., None] * -torch.exp(params["a_log"]))  # (B, d_in, N)
+    bx = (dt * xi.float())[..., None] * bvec.float()[:, None, :]
+    h = a_bar * state["h"] + bx
+    y = _mamba_contract(h, cvec)
+    return _mamba_gate(params, y, xi, z, x.dtype)[:, None], {"h": h, "conv": conv}
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""The model facade of the port: the dense, vision-language, MoE, RWKV-6
-and encoder-decoder families, for training and serving.
+"""The model facade of the port: the dense, vision-language, MoE, hybrid,
+RWKV-6 and encoder-decoder families, for training and serving.
 
 The counterpart of ``repro/models/model.py``'s :class:`Model` for
 ``family`` ``"dense"``, ``"vlm"`` (the dense trunk; ``forward`` puts the
 vision front end's patch embeddings before the tokens and drops their rows
 before the head, and the serving path, as the reference's, runs the text
 alone from position 0), ``"moe"`` (the MoE MLP in every layer in place
-of the dense one), ``"ssm"`` (RWKV-6: a time mix and a channel mix a layer,
+of the dense one), ``"hybrid"`` (Jamba: groups of ``attn_period`` layers,
+an attention layer with a dense MLP and then ``attn_period - 1`` Mamba
+layers whose MLP is MoE at the even in-group positions and dense at the
+odd ones), ``"ssm"`` (RWKV-6: a time mix and a channel mix a layer,
 LayerNorm with bias) and ``"encdec"`` (whisper: a non-causal encoder over
 audio frames and a decoder with self- and cross-attention, sinusoidal
 positions, the GELU MLP, LayerNorm with bias): ``init`` draws seeded
@@ -18,21 +21,27 @@ serving path over a per-slot KV cache, or for ``ssm`` a recurrent
 state with no position axis.
 
 Layouts follow the reference so tests compare like with like: parameters
-are stacked per layer under a leading ``n_layers`` axis (the reference's
-``lax.scan`` becomes a Python loop over layers), and the cache is
-``(n_layers, B, max_len, Hkv, D)`` (``ssm``: ``s`` (n_layers, B, H, K, V)
-f32, ``shift_tm`` and ``shift_cm`` (n_layers, B, d); ``encdec`` adds the
-cross-attention's ``xk``/``xv`` (n_layers, B, encoder_seq_len, Hkv, D),
-which a decode step reads and never writes; with ``cache_quant="int8"``
-the dense, vlm and moe caches hold int8 ``k``/``v`` and bf16
-``k_scale``/``v_scale`` (n_layers, B, max_len, Hkv, 1)). Where the
-reference donates the cache and gets a new one back, the port updates every
-leaf in place, at a fixed address, and returns the same dict.
+are stacked per layer under a leading ``n_layers`` axis (``hybrid``: per
+group, and within a group per Mamba, MoE or dense-MLP layer, as
+``groups.mamba`` (g, m, …), ``groups.mamba_moe`` (g, n_moe, …) and
+``groups.mamba_mlp`` (g, m − n_moe, …)); the reference's ``lax.scan``
+becomes a Python loop over layers, and the cache is
+``(n_layers, B, max_len, Hkv, D)`` (``hybrid``: ``k``/``v`` (g, B, max_len,
+Hkv, D), ``h`` (g, m, B, d_in, N) f32 and ``conv`` (g, m, B, K, d_in);
+``ssm``: ``s`` (n_layers, B, H, K, V) f32, ``shift_tm`` and ``shift_cm``
+(n_layers, B, d); ``encdec`` adds the cross-attention's ``xk``/``xv``
+(n_layers, B, encoder_seq_len, Hkv, D), which a decode step reads and
+never writes; with ``cache_quant="int8"`` the dense, vlm and moe caches
+hold int8 ``k``/``v`` and bf16 ``k_scale``/``v_scale`` (n_layers, B,
+max_len, Hkv, 1)). Where the reference donates the cache and gets a new
+one back, the port updates every leaf in place, at a fixed address, and
+returns the same dict.
 
 ``cfg.attn_chunk`` runs full-sequence attention in online-softmax chunks
-(``layers.chunked_attention``), and ``cfg.remat`` checkpoints each layer of
-a full-sequence pass while autograd records (:func:`_remat`), as the
-reference's ``jax.checkpoint`` does: it changes memory, not numbers.
+(``layers.chunked_attention``), and ``cfg.remat`` checkpoints each layer
+(``hybrid``: each group) of a full-sequence pass while autograd records
+(:func:`_remat`), as the reference's ``jax.checkpoint`` does: it changes
+memory, not numbers.
 """
 
 from __future__ import annotations
@@ -88,6 +97,9 @@ def _remat(body, cfg: ModelConfig):
     return run
 
 
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -107,11 +119,13 @@ def _layers(tree: dict, n: int) -> list[dict]:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family not in ("dense", "vlm", "moe", "ssm", "encdec"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported; the port runs dense, vlm, moe, ssm "
-                f"(RWKV-6) and encdec (whisper), and hybrid is queued in "
-                f"ROADMAP.md, Queue 1, \"The other families\"")
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r} is not one of the reference's "
+                                      f"{FAMILIES}")
+        if cfg.family == "hybrid" and (cfg.attn_period < 1 or cfg.n_layers % cfg.attn_period):
+            # the reference divides by zero, or drops the layers past the last whole group
+            raise ValueError(f"a hybrid's {cfg.n_layers} layers must be whole groups of "
+                             f"attn_period={cfg.attn_period} layers")
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -126,7 +140,9 @@ class Model:
 
     def init(self, seed: int) -> dict:
         """Seeded weights on ``self.device``, in the reference's tree: the
-        MoE family has ``layers.moe`` in place of ``layers.mlp``; ``ssm``
+        MoE family has ``layers.moe`` in place of ``layers.mlp``; ``hybrid``
+        has ``groups.{attn_norm, attn, attn_mlp_norm, attn_mlp, mamba_norm,
+        mamba, mamba_mlp_norm, mamba_moe, mamba_mlp}`` (:meth:`_hybrid_init`); ``ssm``
         has ``layers.{tm_norm, tm, cm_norm, cm}``; ``encdec`` has
         ``enc_layers.{ln1, attn, ln2, mlp}``, ``enc_final_norm`` and
         ``dec_layers.{ln1, self_attn, ln2, cross_attn, ln3, mlp}``. The
@@ -163,6 +179,8 @@ class Model:
                 "ln3": norm(n, d),
                 "mlp": L.mlp_init(gen, cfg, stack=n),
             }
+        elif cfg.family == "hybrid":
+            params["groups"] = self._hybrid_init(gen, norm)
         elif cfg.family == "ssm":
             params["layers"] = {
                 "tm_norm": norm(n, d),
@@ -183,6 +201,40 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = L._dense_init(gen, (d, cfg.vocab_size))
         return params
+
+    def _groups(self) -> tuple[int, int, int]:
+        """A hybrid's groups, Mamba layers a group, and MoE layers among
+        them (the even in-group positions)."""
+        m = self.cfg.attn_period - 1
+        return self.cfg.n_layers // self.cfg.attn_period, m, (m + 1) // 2
+
+    def _hybrid_init(self, gen: torch.Generator, norm) -> dict:
+        """The hybrid trunk's tree, the reference's ``_hybrid_trunk_init``:
+        per group an attention layer and its dense MLP, and the Mamba layers'
+        mixers and norms (g, m, …), MoE MLPs (g, n_moe, …) and dense MLPs
+        (g, m − n_moe, …). Each nested stack is drawn as one stack of its
+        g·count layers (``layers._dense_init``, a part of at most one layer
+        at a time; the MoE experts a layer at a time) and viewed as
+        (g, count, …)."""
+        cfg = self.cfg
+        g, m, n_moe = self._groups()
+        d = cfg.d_model
+
+        def nested(init, count: int) -> dict:
+            tree = init(gen, cfg, stack=max(g * count, 1))  # stack=0 would mean no stack axis
+            return {k: v[:g * count].reshape(g, count, *v.shape[1:]) for k, v in tree.items()}
+
+        return {
+            "attn_norm": norm(g, d),
+            "attn": L.attention_init(gen, cfg, stack=g),
+            "attn_mlp_norm": norm(g, d),
+            "attn_mlp": L.mlp_init(gen, cfg, stack=g),
+            "mamba_norm": norm(g, m, d),
+            "mamba": nested(L.mamba_init, m),
+            "mamba_mlp_norm": norm(g, m, d),
+            "mamba_moe": nested(L.moe_init, n_moe),
+            "mamba_mlp": nested(L.mlp_init, m - n_moe),
+        }
 
     def _head(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -207,14 +259,21 @@ class Model:
             fe = batch["frontend_embeds"].to(x.dtype)  # (B, P, d)
             x = torch.cat([fe, x], dim=1)
             prefix = fe.shape[1]
-        if cfg.family == "ssm":
-            x = self._rwkv_trunk(params["layers"], x)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        else:
-            x, aux = self._uniform_trunk(params["layers"], x)
+        x, aux = self.trunk(params, x)
         x = _norm(params["final_norm"], x, cfg.norm_eps)
         logits = x[:, prefix:] @ self._head(params)
         return logits, aux
+
+    def trunk(self, params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layers of ``forward`` (not ``encdec``'s) over the embedded
+        (B, S, d) ``x``, from ``params["layers"]`` (``hybrid``:
+        ``params["groups"]``): (x, the MoE aux loss)."""
+        if self.cfg.family == "ssm":
+            x = self._rwkv_trunk(params["layers"], x)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.cfg.family == "hybrid":
+            return self._hybrid_trunk(params["groups"], x)
+        return self._uniform_trunk(params["layers"], x)
 
     def _uniform_trunk(self, trunk: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -231,6 +290,40 @@ class Model:
         body = _remat(body, cfg)
         for lp in _layers(trunk, cfg.n_layers):
             x, aux = body(x, aux, lp)
+        return x, aux
+
+    def _hybrid_trunk(self, trunk: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A group a step: attention and its dense MLP, then each Mamba layer
+        and its MLP (MoE at even in-group positions, adding to the aux
+        loss); ``cfg.remat`` checkpoints a group, as the reference's
+        ``_remat`` of its group body."""
+        cfg = self.cfg
+        g, m, n_moe = self._groups()
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def body(x, aux, gp):
+            x = x + L.attention_apply(
+                gp["attn"], cfg, _norm(gp["attn_norm"], x, cfg.norm_eps), positions)
+            x = x + L.mlp_apply(gp["attn_mlp"], _norm(gp["attn_mlp_norm"], x, cfg.norm_eps))
+            moes, mlps = _layers(gp["mamba_moe"], n_moe), _layers(gp["mamba_mlp"], m - n_moe)
+            mamba = zip(_layers(gp["mamba_norm"], m), _layers(gp["mamba"], m),
+                        _layers(gp["mamba_mlp_norm"], m))
+            for i, (norm, mixer, mlp_norm) in enumerate(mamba):
+                x = x + L.mamba_apply(mixer, cfg, _norm(norm, x, cfg.norm_eps))
+                y = _norm(mlp_norm, x, cfg.norm_eps)
+                if i % 2 == 0:
+                    y, a = L.moe_apply(moes[i // 2], cfg, y)
+                    aux = aux + a
+                else:
+                    y = L.mlp_apply(mlps[i // 2], y)
+                x = x + y
+            return x, aux
+
+        body = _remat(body, cfg)
+        for gp in _layers(trunk, g):
+            x, aux = body(x, aux, gp)
         return x, aux
 
     def _rwkv_trunk(self, trunk: dict, x: torch.Tensor) -> torch.Tensor:
@@ -345,8 +438,24 @@ class Model:
         (:meth:`cross_kv`). With ``cache_quant="int8"``, the dense, vlm and
         moe caches hold int8 ``k``/``v`` and bf16 ``k_scale``/``v_scale`` of
         one column; ``encdec``'s stays bf16, as the reference ignores
-        ``cache_quant`` there."""
+        ``cache_quant`` there. ``hybrid``'s holds bf16 ``k``/``v`` a group
+        and the Mamba layers' f32 ``h`` and bf16 ``conv`` window: the
+        reference's attention quantizes only a cache with ``k_scale``, and
+        its hybrid cache has none, so ``cache_quant`` changes nothing there
+        either."""
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            g, m, _ = self._groups()
+            d_in, hd = cfg.ssm_expand * cfg.d_model, cfg.head_dim_
+            kv = (g, batch_size, max_len, cfg.n_kv_heads, hd)
+            return {
+                "k": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=self.device),
+                "v": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=self.device),
+                "h": torch.zeros((g, m, batch_size, d_in, cfg.ssm_state_dim),
+                                 dtype=torch.float32, device=self.device),
+                "conv": torch.zeros((g, m, batch_size, cfg.ssm_conv_dim, d_in),
+                                    dtype=L.COMPUTE_DTYPE, device=self.device),
+            }
         if cfg.family == "ssm":
             n, hd = cfg.n_layers, cfg.rwkv_head_dim
             return {
@@ -401,7 +510,9 @@ class Model:
         freed slot keeps its last request's state; the reference reads that
         state on, ROADMAP.md Queue 3). Each layer's state leaves then take
         the new rows where ``update_mask`` selects (:meth:`_masked_cache`),
-        so a masked row keeps its bits at any position.
+        so a masked row keeps its bits at any position. ``hybrid`` does the
+        same for its Mamba layers' ``h`` and ``conv``, beside the KV cache of
+        its attention layers.
 
         ``encdec`` adds sinusoidal positions at each slot's position, runs
         unrotated self-attention on ``k``/``v`` as above and
@@ -421,6 +532,8 @@ class Model:
             if self.cfg.family == "encdec":
                 x = x + _sinusoidal(pos[:, None], self.cfg.d_model)
                 x = self._encdec_decode(params["dec_layers"], cache, x, pos, update_mask)
+            elif self.cfg.family == "hybrid":
+                x = self._hybrid_decode(params["groups"], cache, x, pos, update_mask)
             else:
                 x = self._uniform_decode(params["layers"], cache, x, pos, update_mask)
         x = _norm(params["final_norm"], x, self.cfg.norm_eps)
@@ -493,6 +606,38 @@ class Model:
             x = x + self._mlp(lp, x)[0]
         return x
 
+    def _hybrid_decode(self, trunk: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
+                       update_mask: torch.Tensor | None) -> torch.Tensor:
+        """The hybrid trunk for one token: each group's attention over its
+        KV cache, then its Mamba layers' steps. The steps read a copy of
+        ``h`` and ``conv``, zero on the rows at position 0 (on the card: no
+        read-back), made in one pass over all layers; the rows they write
+        go to the cache itself."""
+        cfg = self.cfg
+        g, m, _ = self._groups()
+        fresh = (pos == 0).view(1, 1, -1, 1, 1)
+        state = {key: torch.where(fresh, 0.0, cache[key]) for key in ("h", "conv")}
+        for gi in range(g):
+            gp = _layer(trunk, gi)
+            layer_cache = {"k": cache["k"][gi], "v": cache["v"][gi]}  # views
+            x = x + L.attention_apply(
+                gp["attn"], cfg, _norm(gp["attn_norm"], x, cfg.norm_eps), pos[:, None],
+                cache=layer_cache, cache_pos=pos, update_mask=update_mask)
+            x = x + L.mlp_apply(gp["attn_mlp"], _norm(gp["attn_mlp_norm"], x, cfg.norm_eps))
+            for i in range(m):
+                h = _norm(_layer(gp["mamba_norm"], i), x, cfg.norm_eps)
+                y, st = L.mamba_step(_layer(gp["mamba"], i), cfg, h,
+                                     {"h": state["h"][gi, i], "conv": state["conv"][gi, i]})
+                x = x + y
+                self._masked_cache(cache, st, update_mask, (gi, i))
+                y = _norm(_layer(gp["mamba_mlp_norm"], i), x, cfg.norm_eps)
+                if i % 2 == 0:
+                    y = L.moe_apply(_layer(gp["mamba_moe"], i // 2), cfg, y)[0]
+                else:
+                    y = L.mlp_apply(_layer(gp["mamba_mlp"], i // 2), y)
+                x = x + y
+        return x
+
     def _encdec_decode(self, trunk: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
                        update_mask: torch.Tensor | None) -> torch.Tensor:
         cfg = self.cfg
@@ -537,13 +682,16 @@ class Model:
 
     @staticmethod
     def _masked_cache(cache: dict, new: dict, update_mask: torch.Tensor | None,
-                      layer: int) -> None:
+                      layer: int | tuple[int, int]) -> None:
         """The reference's per-leaf batch-row select, in place: layer
         ``layer`` of each leaf named in ``new`` takes its rows where
         ``update_mask`` is True (every row without a mask), and the other
-        rows keep their bits. The batch axis is 1 of each stacked leaf, 0
-        of the layer's view. ``copy_`` keeps the leaf's address, so a CUDA
-        graph replay reads the state the last step wrote."""
+        rows keep their bits. ``layer`` indexes the leading axes: a layer of
+        an ``ssm`` leaf, or (group, Mamba layer) of a hybrid's ``h`` and
+        ``conv``, whose batch axis is 2 where the layer axis leads the
+        others'; the layer's view has the batch on axis 0 either way.
+        ``copy_`` keeps the leaf's address, so a CUDA graph replay reads the
+        state the last step wrote."""
         for key, rows in new.items():
             buf = cache[key][layer]
             if update_mask is not None:

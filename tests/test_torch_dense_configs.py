@@ -33,7 +33,7 @@ DENSE = ["phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"]
 REFERENCE_NAMES = ["jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
                    "phi4-mini-3.8b", "qwen2.5-32b", "minitron-4b", "qwen2-0.5b",
                    "phi-3-vision-4.2b", "whisper-medium", "rwkv6-7b", "paper-lm-100m"]
-UNPORTED = ["jamba-1.5-large-398b", "kimi-k2-1t-a32b"]  # more than one card: ROADMAP Queue 1
+ONCE_UNPORTED = ["jamba-1.5-large-398b", "kimi-k2-1t-a32b"]  # ported since, cut in depth on a card
 # the published heads that take a cluster of 16 at B = 4, by vocabulary: the chunk a block takes
 HEADS = {152_064: 9_504, 200_064: 12_504, 256_000: 16_000}
 
@@ -41,7 +41,7 @@ HEADS = {152_064: 9_504, 200_064: 12_504, 256_000: 16_000}
 # ------------------------------------------------------------ the registry
 
 
-@pytest.mark.parametrize("name", [n for n in REFERENCE_NAMES if n not in UNPORTED])
+@pytest.mark.parametrize("name", REFERENCE_NAMES)
 def test_registry_entry_equals_the_references(name):
     from repro.configs import get
 
@@ -49,17 +49,36 @@ def test_registry_entry_equals_the_references(name):
 
 
 def test_registry_holds_the_references_names_but_two():
+    """Every name of the reference's registry, in its order: the two it
+    once lacked (``ONCE_UNPORTED``) too."""
     from repro import configs
 
-    assert sorted(ARCHS) == sorted(set(configs.ARCHS) - set(UNPORTED))
+    assert list(ARCHS) == list(configs.ARCHS)
+    assert set(ONCE_UNPORTED) <= set(ARCHS)
     assert list(EXTRAS) == list(configs.EXTRAS) == ["paper-lm-100m"]
     assert "paper-lm-100m" not in ARCHS
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", ONCE_UNPORTED)
 def test_an_unported_name_points_at_the_roadmap(name):
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        torch_get(name)
+    """A name once refused builds now: its reduced config equals the
+    reference's and makes a model on the CPU whose cache has the
+    reference's leaves, shapes and dtypes; a name neither registry holds
+    raises."""
+    from repro.configs import get
+    from repro.models.model import Model
+    from repro_torch.models.model import Model as TorchModel
+
+    cfg = torch_get(name).reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(get(name).reduced())
+    want = Model(get(name).reduced()).init_cache(2, 8, concrete=False)
+    got = TorchModel(cfg, device="cpu").init_cache(2, 8)
+    assert sorted(got) == sorted(want)
+    for key, leaf in want.items():
+        assert tuple(got[key].shape) == leaf.shape
+        assert str(got[key].dtype).removeprefix("torch.") == str(leaf.dtype)
+    with pytest.raises(KeyError, match="unknown arch"):
+        torch_get(name + "-x")
 
 
 # ------------------------------------------------------- each configuration

@@ -4,7 +4,8 @@ through ``python -m repro_torch.launch.serve`` in each of its modes (the
 MoE and RWKV-6 families through both too; the encoder-decoder family through
 the engine, each request over its own encoded window, and the driver refuses it as the
 reference's does; the vision-language family through its prefixed forward and the engine;
-the other dense configurations through the driver), and through the closed-loop bridge into the
+the other dense configurations through the driver; the hybrid jamba through its forward, the
+engine and the driver, and kimi-k2 through the driver), and through the closed-loop bridge into the
 port's copy of the cluster model (its report's energy and roofline views
 import their modules lazily, so the run calls them); it trains through
 ``python -m repro_torch.launch.train``, with and without checkpoints, and
@@ -99,10 +100,21 @@ for i, p in enumerate([[5, 9, 2], [7, 1], [4]]):
     engine.submit(Request(uid=i, prompt=p, max_new_tokens=3))
 vlm_done = engine.run_until_done()
 assert sorted(len(r.generated) for r in vlm_done) == [3, 3, 3], vlm_done
-for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"):
+for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m",
+             "jamba-1.5-large-398b", "kimi-k2-1t-a32b"):
     sys.argv = ["serve", "--device", "cpu", "--reduced", "--arch", arch, "--steps", "6",
                 "--fuse", "2", "--cache-len", "8", "--mode", "fused"]
     runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+jamba = Model(dataclasses.replace(get("jamba-1.5-large-398b").reduced(), remat="none"),
+              device="cpu")
+jparams = jamba.init(0)
+logits, aux = jamba.forward(jparams, {"tokens": torch.tensor([[5, 9, 2]])})
+assert logits.shape == (1, 3, jamba.cfg.vocab_size) and float(aux) > 0, (logits.shape, aux)
+engine = ServingEngine(jamba, jparams, max_slots=2, max_len=32, prefill_chunk=2)
+for i, p in enumerate([[5, 9, 2], [7, 1], [4]]):
+    engine.submit(Request(uid=i, prompt=p, max_new_tokens=3))
+jamba_done = engine.run_until_done()
+assert sorted(len(r.generated) for r in jamba_done) == [3, 3, 3], jamba_done
 from repro_torch.bridge import ClosedLoopDriver, TenantEngine
 from repro_torch.cluster import Cluster
 tenants = []
@@ -135,7 +147,8 @@ def test_port_serves_with_jax_and_repro_unimportable():
         assert f"[serve] arch=qwen2-0.5b mode={mode} batch=4 steps={steps}: " in out.stdout
     assert "[serve] arch=phi3.5-moe-42b-a6.6b mode=fused batch=4 steps=4: " in out.stdout
     assert "[serve] arch=rwkv6-7b mode=fused batch=4 steps=4: " in out.stdout
-    for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m"):
+    for arch in ("phi4-mini-3.8b", "minitron-4b", "qwen2.5-32b", "paper-lm-100m",
+                 "jamba-1.5-large-398b", "kimi-k2-1t-a32b"):
         assert f"[serve] arch={arch} mode=fused batch=4 steps=4: " in out.stdout
     assert "refused: serve driver targets decoder-only archs" in out.stdout
     assert "int8 served 2 chunked forward (1, 12, 256)" in out.stdout
@@ -274,13 +287,15 @@ def test_the_compiler_and_the_doctor_run_with_jax_repro_and_ml_dtypes_unimportab
 
 def test_no_source_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)\b", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                     ROOT / "parity_sweep.py"]
     assert {"bridge/report.py", "bridge/descriptors.py", "cluster/router.py", "power/meter.py",
             "core/interp.py", "optim/adamw.py", "data/pipeline.py", "checkpoint/store.py",
             "runtime/supervisor.py", "launch/steps.py", "launch/train.py", "tree.py",
             "obs/doctor.py", "core/passes/overlap.py", "fabric/migrate.py",
-            "cluster/powercap.py", "engine/autotune.py"} <= {
-        f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
+            "cluster/powercap.py", "engine/autotune.py", "configs/jamba_1_5_large_398b.py",
+            "configs/kimi_k2_1t_a32b.py"} <= {
+        f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-2]}
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in banned.finditer(f.read_text())]
     assert not offenders, offenders

@@ -40,8 +40,8 @@ def _tokens(cfg, shape, seed=1):
 
 def test_config_and_registry_match_reference():
     assert dataclasses.asdict(torch_get("qwen2-0.5b")) == dataclasses.asdict(get("qwen2-0.5b"))
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        torch_get("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        torch_get("no-such-arch")
 
 
 @pytest.mark.parametrize("change", [
@@ -49,9 +49,16 @@ def test_config_and_registry_match_reference():
     {"family": "hybrid", "attn_period": 8, "n_experts": 4, "experts_per_token": 2,
      "moe_period": 2}])  # jamba's layout: Mamba, attention a group of 8, MoE every other layer
 def test_model_rejects_what_is_not_ported(change):
+    """The hybrid family is ported (``tests/test_torch_hybrid.py``); a
+    hybrid that is not whole groups of ``attn_period`` layers is refused
+    before any weights are drawn (the reference divides by a zero period,
+    or drops the 2 layers here short of a group of 8), and so is a family
+    the reference does not have."""
     cfg = dataclasses.replace(torch_get("qwen2-0.5b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="whole groups"):
         TorchModel(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not one of the reference's"):
+        TorchModel(dataclasses.replace(cfg, family="mamba2"), device="cpu")
 
 
 @pytest.mark.parametrize("change", [{"cache_quant": "int8"}, {"attn_chunk": 64}])

@@ -157,8 +157,8 @@ def test_config_and_registry_match_reference():
 
     assert dataclasses.asdict(torch_get(ARCH)) == dataclasses.asdict(get(ARCH))
     assert torch_get(ARCH).n_layers == 32
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        torch_get("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        torch_get("no-such-arch")
 
 
 def test_init_draws_the_reference_tree(pair):

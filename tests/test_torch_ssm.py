@@ -169,16 +169,17 @@ def test_config_and_registry_match_reference():
     cfg = torch_get(ARCH)
     assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == \
         ("ssm", 32, 4096, 14336, 65536)
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        torch_get("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        torch_get("no-such-arch")
 
 
 @pytest.mark.parametrize("family", ["hybrid", "encdec", "jamba"])
 def test_model_admits_ssm_and_rejects_the_unported_families(family):
-    """ssm's state has no position axis; encdec (ported since) admits and
-    has one; hybrid is refused, also in the layout of jamba-1.5-large-398b
-    (the reference's configuration, reduced), whose name the port's
-    registry lacks."""
+    """ssm's state has no position axis; encdec and hybrid (both ported
+    since) admit and have one: jamba-1.5-large-398b, the reference's
+    configuration reduced, is in the port's registry and builds. rwkv6-7b's
+    config relabelled hybrid is refused: it has no attention period, so no
+    groups to build."""
     cfg = torch_get(ARCH).reduced()
     assert TorchModel(cfg, device="cpu").cache_has_positions is False
     if family == "encdec":
@@ -188,14 +189,12 @@ def test_model_admits_ssm_and_rejects_the_unported_families(family):
     if family == "jamba":
         from repro.configs import get
 
-        jamba = dataclasses.asdict(get("jamba-1.5-large-398b").reduced())
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            torch_get(jamba["name"])
-        cfg = type(cfg)(**jamba)
-    else:
-        cfg = dataclasses.replace(cfg, family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchModel(cfg, device="cpu")
+        jamba = get("jamba-1.5-large-398b").reduced()
+        assert dataclasses.asdict(torch_get(jamba.name).reduced()) == dataclasses.asdict(jamba)
+        assert TorchModel(torch_get(jamba.name).reduced(), device="cpu").cache_has_positions
+        return
+    with pytest.raises(ValueError, match="whole groups"):
+        TorchModel(dataclasses.replace(cfg, family=family), device="cpu")
 
 
 def test_init_draws_the_reference_tree(pair):
