@@ -315,6 +315,23 @@ Phases, each printing its results; any failure exits non-zero:
    this path's greedy_sample launches, its ``*_train`` keys the
    (4, 32000) times and bound.
 
+17. Distribution (``phase_distributed``): a one-rank NCCL group and
+   ``launch.mesh.make_host_mesh()``, a 1x1 ("data", "model") mesh, each
+   model's arguments placed by ``repro_torch.distributed``'s rules as
+   DTensors and run under ``distributed.sharded``, against the same model
+   unsharded, bit for bit: paper-lm-100m whole, one train step at B = 8,
+   S = 256 with gradient compression off and ``"bf16"`` (the loss and every
+   parameter and optimizer-state leaf); qwen2-0.5b whole, 8 fused
+   ``decode_and_sample`` steps and 8 teacher-forced decode steps (4
+   slots, a 64-row cache; ids and logits), greedy_sample once a sharded
+   step; phi-3.5-MoE at its published widths, 2 of 32 layers, a forward
+   at (2, 16) tokens with ``moe_impl="shard_map"`` through the expert
+   all-to-all over the NCCL group (two ``all_to_all_single`` a layer,
+   counted by ``CommDebugMode``) against the one-device path (logits and
+   aux loss), the router's top_k once a layer. Each pair's seconds, the
+   phase's seconds and its peak memory are printed. The record's
+   ``launches_distributed`` are these greedy_sample and top_k launches.
+
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
 
@@ -394,6 +411,10 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 2e-3, 5e-2  # card against the CPU port
 TRAIN_REPLAY = (20, 8, (3, 13))  # steps, checkpoint interval, the steps that fail
 TRAIN_REQUESTS, TRAIN_PROMPT, TRAIN_NEW = 4, (16, 33), 16
 FREED_SLACK = 1 << 30  # bytes a phase may leave allocated past what it found
+# the [distributed] phase: a one-rank NCCL group on a 1x1 ("data", "model") mesh
+DIST_TRAIN = (8, 256)  # (B, S) of the sharded train step: the train driver's batch
+DIST_DECODE = (4, 64, 8)  # (B, cache rows, steps) of the sharded fused decode
+DIST_MOE_LAYERS, DIST_MOE_TOKENS = 2, (2, 16)  # phi-3.5-MoE at published widths, 2 of 32 layers
 # the [int8-kv] phase: tests/test_serving.py's int8-against-bf16 decode bounds and bytes ratio
 INT8_TOP1, INT8_RTOL, INT8_ATOL, INT8_BYTES = 0.95, 0.2, 0.5, 0.65
 INT8_REQUESTS, INT8_PROMPT, INT8_NEW = 4, (16, 33), 16  # prompts of 16-32 seeded tokens
@@ -3559,6 +3580,190 @@ def phase_train(smi: str) -> dict:
     return {"greedy_sample": launches, **greedy}
 
 
+def _sharded_against_plain(tag: str, plain, sharded) -> None:
+    """Fails unless every leaf of ``sharded`` (DTensors) equals the matching
+    leaf of ``plain`` bit for bit."""
+    from repro_torch.tree import leaves
+
+    got, want = leaves(sharded), leaves(plain)
+    if len(got) != len(want) or not all(
+            torch.equal(a, b.full_tensor() if hasattr(b, "full_tensor") else b)
+            for a, b in zip(want, got)):
+        raise SystemExit(f"{tag} the sharded result differs from the unsharded one")
+
+
+def phase_distributed(smi: str) -> dict:
+    """Distribution on one card: a one-rank NCCL group (a ``FileStore``,
+    ``world_size=1``) and ``launch.mesh.make_host_mesh()``, a 1x1 ("data",
+    "model") mesh. Each model's arguments are placed by
+    ``distributed``'s rules (``launch.steps.with_shardings``: DTensors) and
+    run under ``distributed.sharded``, against the same model unsharded:
+
+    * paper-lm-100m whole: one train step (``build_train_step``) at the
+      train driver's batch, gradient compression off and ``"bf16"``; the
+      loss, the new parameters and every optimizer-state leaf bit for bit;
+    * qwen2-0.5b whole: 8 fused ``decode_and_sample`` steps (4 slots, a
+      64-row cache) and 8 teacher-forced decode steps on the same
+      tokens; ids and logits bit for bit, greedy_sample launched once a
+      sharded step (counted from 0 just before);
+    * phi-3.5-MoE at its published widths, 2 of its 32 layers:
+      ``moe_impl="shard_map"`` through the expert all-to-all over the NCCL
+      group (``CommDebugMode`` counts each ``all_to_all_single``) against
+      the one-device path, logits and aux loss bit for bit, the router's
+      top_k launched once a layer (counted from 0 just before).
+
+    Each check prints its unsharded and sharded seconds; the phase prints
+    its seconds and peak memory."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed import (cache_shardings, input_shardings, opt_state_shardings,
+                                         param_shardings, sharded)
+    from repro_torch.kernels.sampling import greedy_sample, top_k
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, with_shardings
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    device = "cuda"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    found = torch.cuda.memory_allocated()
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+
+    def timed(run):
+        torch.cuda.synchronize()
+        ti = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ti
+
+    try:
+        mesh = make_host_mesh()
+        print(f"[distributed] one-rank nccl group, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {device} ({smi})")
+
+        # paper-lm-100m whole: one train step, compression off and bf16
+        cfg = dataclasses.replace(get(TRAIN_ARCH), remat="none")
+        model = Model(cfg, device=device)
+        params, opt = model.init(SEED), AdamW()
+        b, s = DIST_TRAIN
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 SyntheticLMDataset(cfg.vocab_size, s, b).batch(0).items()}
+        for compress in ("none", "bf16"):
+            m = Model(dataclasses.replace(cfg, grad_compression=compress), device=device)
+            step, state = build_train_step(m, opt), opt.init(params)
+            step(params, state, batch)  # warm-up
+            (p1, s1, m1), plain_s = timed(lambda: step(params, state, batch))
+            args = (with_shardings(params, param_shardings(mesh, params, cfg), mesh),
+                    with_shardings(state, opt_state_shardings(mesh, state, cfg), mesh),
+                    with_shardings(batch, input_shardings(mesh, batch, cfg), mesh))
+            step(*args)
+            (p2, s2, m2), sharded_s = timed(lambda: step(*args))
+            if not torch.equal(m1["loss"], m2["loss"]):
+                raise SystemExit(f"[distributed] the sharded train step's loss differs "
+                                 f"({compress}): {float(m1['loss'])} vs {float(m2['loss'])}")
+            _sharded_against_plain("[distributed] train step", (p1, s1), (p2, s2))
+            print(f"[distributed] {cfg.name} train step (B={b}, S={s}, grad_compression="
+                  f"{compress}): loss {float(m1['loss']):.6f}, the loss and all "
+                  f"{len(leaves(p1)) + len(leaves(s1))} parameter and optimizer-state "
+                  f"leaves bit for bit the unsharded step's; {plain_s * 1e3:.1f} ms unsharded, "
+                  f"{sharded_s * 1e3:.1f} ms sharded (one step, host clock)")
+        del model, params, batch, m, state, args, p1, s1, p2, s2
+
+        # qwen2-0.5b whole: fused decode_and_sample and teacher-forced decode_step
+        cfg = dataclasses.replace(get("qwen2-0.5b"), remat="none")
+        model = Model(cfg, device=device)
+        params = model.init(SEED)
+        b, rows, steps = DIST_DECODE
+        gen = torch.Generator().manual_seed(SEED + 26)
+        prompt = torch.randint(0, cfg.vocab_size, (b,), generator=gen, dtype=torch.int32).to(device)
+        first = torch.ones(b, dtype=torch.bool, device=device)
+
+        def decode(p, cache, forced, placed: bool = False):
+            ids = {"tokens": torch.zeros((b, 1), dtype=torch.int32, device=device)}
+            if placed:
+                ids = with_shardings(ids, input_shardings(mesh, ids, cfg), mesh)
+            ids = ids["tokens"]
+            out_ids, out_logits, tok = [], [], prompt[:, None]
+            for i in range(steps):
+                ids, _ = model.decode_and_sample(p, cache, ids, prompt, first & (i == 0), i)
+                logits, _ = model.decode_step(p, forced, tok, i)
+                tok = ids
+                out_ids.append(ids)
+                out_logits.append(logits)
+            return out_ids, out_logits
+
+        caches = [model.init_cache(b, rows) for _ in range(2)]
+        (want_ids, want_logits), plain_s = timed(lambda: decode(params, *caches))
+        placed = with_shardings(params, param_shardings(mesh, params, cfg), mesh)
+        caches = [model.init_cache(b, rows) for _ in range(2)]
+        caches = [with_shardings(c, cache_shardings(mesh, cfg, c), mesh) for c in caches]
+        greedy_sample.launches = 0
+        with sharded(mesh):
+            (got_ids, got_logits), sharded_s = timed(lambda: decode(placed, *caches, True))
+        greedy = greedy_sample.launches
+        _sharded_against_plain("[distributed] decode ids", want_ids, got_ids)
+        _sharded_against_plain("[distributed] decode logits", want_logits, got_logits)
+        if greedy != steps:
+            raise SystemExit(f"[distributed] greedy_sample launched {greedy} times in "
+                             f"{steps} sharded fused steps")
+        print(f"[distributed] {cfg.name} {steps} fused decode_and_sample steps and {steps} "
+              f"decode_steps (B={b}, cache {rows} rows): ids and logits bit for bit the "
+              f"unsharded ones; greedy_sample launched {greedy} times; first row "
+              f"{[int(x[0, 0]) for x in want_ids]}; {plain_s:.2f} s unsharded, {sharded_s:.2f} s "
+              f"sharded (host clock)")
+        del model, params, placed, caches, want_logits, got_logits
+
+        # phi-3.5-MoE at published widths, 2 of 32 layers: the all-to-all
+        full = get(MOE_ARCH)
+        cfg = dataclasses.replace(full, n_layers=DIST_MOE_LAYERS, remat="none",
+                                  moe_impl="shard_map")
+        model = Model(cfg, device=device)
+        params = model.init(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, DIST_MOE_TOKENS, generator=gen,
+                               dtype=torch.int32).to(device)
+        (want, want_aux), plain_s = timed(lambda: model.forward(params, {"tokens": tokens}))
+        placed = with_shardings(params, param_shardings(mesh, params, cfg), mesh)
+        batch = with_shardings({"tokens": tokens}, input_shardings(mesh, {"tokens": tokens}, cfg),
+                               mesh)
+        top_k.launches = 0
+        with sharded(mesh), CommDebugMode() as comm:
+            (got, got_aux), sharded_s = timed(lambda: model.forward(placed, batch))
+        routers = top_k.launches
+        counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+        _sharded_against_plain("[distributed] MoE logits", [want, want_aux], [got, got_aux])
+        if counts.get("all_to_all_single", 0) != 2 * cfg.n_layers:
+            raise SystemExit(f"[distributed] the MoE forward issued {counts} collectives, not "
+                             f"two all-to-alls a layer")
+        if routers != cfg.n_layers:
+            raise SystemExit(f"[distributed] top_k launched {routers} times for "
+                             f"{cfg.n_layers} routers")
+        print(f"[distributed] {cfg.name} at published widths, {cfg.n_layers} of "
+              f"{full.n_layers} layers, moe_impl=shard_map over the nccl group: logits "
+              f"{tuple(want.shape)} and aux {float(want_aux):.6f} bit for bit the one-device "
+              f"path's; collectives {counts}; top_k launched {routers} times; "
+              f"{plain_s * 1e3:.1f} ms one-device, {sharded_s * 1e3:.1f} ms sharded (host clock)")
+        del model, params, placed, want, got
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[distributed] phase took {time.perf_counter() - t0:.1f} s; "
+          f"max_memory_allocated={peak} B ({smi})")
+    _free_model("[distributed]", found)
+    return {"greedy_sample": greedy, "top_k": routers}
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -3600,6 +3805,7 @@ def main() -> None:
     vlm = phase_vlm(smi)
     dense = phase_dense(smi)
     train = phase_train(smi)
+    distributed = phase_distributed(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":
@@ -3623,6 +3829,7 @@ def main() -> None:
             record["launches_vlm"] = vlm.pop("greedy_sample")
             record["launches_dense"] = dense.pop("greedy_sample")
             record["launches_train"] = train.pop("greedy_sample")
+            record["launches_distributed"] = distributed["greedy_sample"]
             record.update(vlm)
             record.update(dense)
             record.update(train)
@@ -3630,6 +3837,7 @@ def main() -> None:
             record["launches_ops"] = record["launches"]
             record["launches"] = moe.pop("top_k")
             record.update(moe)  # the router shape's times and bound
+            record["launches_distributed"] = distributed["top_k"]
             for sfx, cut in cuts.items():  # jamba's routers and kimi-k2's, with its shape's times
                 record[f"launches_{sfx}"] = cut.pop("top_k")
                 record.update({k: v for k, v in cut.items() if k.startswith("router")})

@@ -23,9 +23,9 @@ restores in the other bit for bit:
   its snapshots as ``uint8`` arrays, as it does through the reference's
   store).
 * **Placement on restore** — each leaf goes to the device of its leaf in
-  ``like_tree``, or to the device named for it in ``devices``: the
-  one-device counterpart of the reference's ``shardings``. Resharding
-  across cards waits for ``ROADMAP.md`` Queue 1, item 6.
+  ``like_tree``, or to the device named for it in ``devices``, or, as the
+  reference's ``shardings`` place it, onto a mesh as a DTensor with the
+  placements named for it in ``placements``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..distributed.spmd import place
 
 
 def _to_host(x: torch.Tensor | np.ndarray) -> tuple[np.ndarray, str]:
@@ -75,6 +77,14 @@ def _flatten(tree, prefix: str = "") -> dict:
                 for k, v in _flatten(item, join(f"[{i}]")).items()}
     if tree is None:
         return {}
+    return {prefix: tree}
+
+
+def _flatten_dicts(tree, prefix: str = "") -> dict:
+    """:func:`_flatten` of a tree whose leaves are tuples (placements)."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _flatten_dicts(tree[key], f"{prefix}/{key}" if prefix else key).items()}
     return {prefix: tree}
 
 
@@ -167,17 +177,22 @@ class CheckpointStore:
         with open(os.path.join(self.directory, f"step_{step}", "manifest.json")) as f:
             return sorted(json.load(f)["arrays"])
 
-    def restore(self, step: int, like_tree, devices=None):
+    def restore(self, step: int, like_tree, devices=None, placements=None, mesh=None):
         """Restore into the structure of ``like_tree``, each leaf on the device
         of its ``like_tree`` leaf, or on the one ``devices`` (a tree of
-        devices, ``None`` where the like leaf's device stands) names. A
-        numpy leaf of ``like_tree`` comes back as a numpy array on the host
+        devices, ``None`` where the like leaf's device stands) names; or,
+        given ``placements`` (a tree of the ``distributed.*_shardings``) and
+        ``mesh``, as a DTensor on the mesh with its placements, each rank
+        keeping its shard of the saved array (reshard-on-restore; the files
+        are the same as for an unsharded save). A numpy leaf of
+        ``like_tree`` comes back as a numpy array on the host
         (``fabric.ContextStore`` restores its ``uint8`` snapshots so)."""
         base = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(base, "manifest.json")) as f:
             manifest = json.load(f)
         flat_like = _flatten(like_tree)
         flat_dev = _flatten(devices) if devices is not None else {}
+        flat_placed = _flatten_dicts(placements) if placements is not None else {}
         leaves = {}
         for key, like in flat_like.items():
             meta = manifest["arrays"][key]
@@ -191,5 +206,8 @@ class CheckpointStore:
                 leaves[key] = raw.view(np.dtype(meta["dtype"])).reshape(meta["shape"])
             else:
                 arr = _from_host(raw, meta["dtype"], meta["shape"])
-                leaves[key] = arr.to(flat_dev.get(key, like.device))
+                if key in flat_placed:
+                    leaves[key] = place(arr, mesh, flat_placed[key])
+                else:
+                    leaves[key] = arr.to(flat_dev.get(key, like.device))
         return _rebuild(like_tree, leaves)

@@ -10,11 +10,16 @@ in both packages (the encoder takes precomputed frame embeddings, the vlm
 precomputed patch embeddings). ``EXTRAS`` holds paper-lm-100m, as the
 reference's does. jamba-1.5-large-398b (796 GB of bf16 weights) and
 kimi-k2-1t-a32b (2.08 TB) need many cards whole; one card runs them cut
-in depth (one Jamba group, one kimi-k2 layer), the sharding across cards
-being queued in ``ROADMAP.md``, Queue 1, item 6.
+in depth (one Jamba group, one kimi-k2 layer); ``launch.dryrun`` places
+them whole on the production meshes, on meta tensors.
+
+``SHAPES``, :func:`applicable` and :func:`cells` are the reference's input
+shapes and its dry-run cells, in its order.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 from repro_torch.models.config import ModelConfig
 
@@ -57,3 +62,37 @@ def get(name: str) -> ModelConfig:
     if name in EXTRAS:
         return EXTRAS[name]
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(EXTRAS)}")
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runs?, reason). long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "full-attention arch: 500k decode skipped per assignment"
+    return True, ""
+
+
+def cells(include_inapplicable: bool = False):
+    """All (arch, shape, runs?, reason) dry-run cells in a stable order."""
+    out = []
+    for arch in ARCHS.values():
+        for shape in SHAPES.values():
+            ok, reason = applicable(arch, shape)
+            if ok or include_inapplicable:
+                out.append((arch, shape, ok, reason))
+    return out

@@ -133,8 +133,10 @@ def greedy_sample(logits: torch.Tensor, plan: GreedyPlan | None = None) -> torch
         _check_plan(plan, v)
     if logits.device.type == "cpu":
         return greedy_sample_ref(logits)
+    if logits.device.type == "meta":  # shapes only (the dry run): nothing computed
+        return torch.empty((b,), dtype=torch.int32, device=logits.device)
     if logits.device.type != "cuda":
-        raise ValueError(f"greedy_sample runs on cuda or cpu, not {logits.device}")
+        raise ValueError(f"greedy_sample runs on cuda, cpu or meta, not {logits.device}")
     if logits.get_device() != torch.cuda.current_device():
         # the runtime launches on the current device's streams only
         with torch.cuda.device(logits.device):
@@ -222,8 +224,11 @@ def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"top_k takes an int 1 <= k <= min(V={v}, K_MAX={K_MAX}), not {k!r}")
     if logits.device.type == "cpu":
         return top_k_ref(logits, k)
+    if logits.device.type == "meta":  # shapes only (the dry run): nothing computed
+        return (torch.empty((b, k), dtype=torch.float32, device=logits.device),
+                torch.empty((b, k), dtype=torch.int32, device=logits.device))
     if logits.device.type != "cuda":
-        raise ValueError(f"top_k runs on cuda or cpu, not {logits.device}")
+        raise ValueError(f"top_k runs on cuda, cpu or meta, not {logits.device}")
     if logits.get_device() != torch.cuda.current_device():
         with torch.cuda.device(logits.device):
             return top_k(logits, k)

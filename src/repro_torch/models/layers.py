@@ -20,8 +20,9 @@ the MoE router in f32, the Mamba ``dt``, decay and state in f32, the RWKV
 decay and state in f32. The serving cache may hold K/V as int8 with a bf16
 scale a row and head (``quantize_kv``), and full-sequence passes may run
 the online-softmax ``chunked_attention`` (``cfg.attn_chunk``), each as the
-reference computes it. The MoE ``shard_map`` all-to-all is not ported
-(``ROADMAP.md``, Queue 1, item 6).
+reference computes it. Under an ambient mesh (``distributed.use_mesh``)
+``moe_impl="shard_map"`` runs the expert-parallel all-to-all
+(:func:`_moe_shard_map`).
 """
 
 from __future__ import annotations
@@ -30,8 +31,11 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed.spmd import ambient_mesh, shard_local_write, traced_once
 from ..kernels import ops as kernel_ops
 from .config import ModelConfig
 
@@ -46,7 +50,12 @@ def _dense_init(gen: torch.Generator, shape: tuple[int, ...], scale_axis: int = 
     stack, made a part of at most one layer at a time into the bf16 stack
     (:func:`_normal_parts`). A stacked f32 draw of qwen2.5-32b's MLP
     matrices would not fit one card beside its weights; drawn in parts,
-    the seeded weights stay those of the stacked draw."""
+    the seeded weights stay those of the stacked draw. On a ``meta``
+    generator (``Model.abstract_params``) it draws nothing and returns an
+    empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty((stack, *shape) if stack else shape, dtype=COMPUTE_DTYPE,
+                           device=gen.device)
     scale = 1.0 / math.sqrt(shape[scale_axis])
     if not stack:
         x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -292,7 +301,10 @@ def masked_cache_write(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor,
     (``Model._masked_cache``), and XLA drops out-of-range writes that
     PyTorch would reject; :func:`attention_apply` gives a masked-out slot
     its own K/V at its position in what it attends to, so it computes the
-    reference's numbers all the same."""
+    reference's numbers all the same. A DTensor cache is written a rank's
+    shard at a time (``distributed.spmd.shard_local_write``)."""
+    if isinstance(buf, DTensor):
+        return shard_local_write(masked_cache_write, buf, val, pos, update_mask)
     rows = torch.arange(buf.shape[0], device=buf.device)
     pos = pos.long()
     new = val[:, 0].to(buf.dtype)
@@ -501,8 +513,9 @@ def _moe_dispatch(cfg: ModelConfig, xt: torch.Tensor, top_p: torch.Tensor,
     the lower flat index), each expert's first slot by a left-side search,
     ``keep`` where the position within the expert is below ``capacity``
     (dropped entries point at slot 0 and add zeros), and a scatter-add of
-    the kept rows into a zero buffer. Nothing here reads a device value
-    back to the host, so a CUDA graph can capture it."""
+    the kept rows into a zero buffer (out of place: DTensor takes no
+    in-place write into a tensor it did not make). Nothing here reads a
+    device value back to the host, so a CUDA graph can capture it."""
     t, d = xt.shape
     k, e = cfg.experts_per_token, cfg.n_experts
     flat_e = top_e.reshape(-1).long()  # (T*k,)
@@ -514,8 +527,8 @@ def _moe_dispatch(cfg: ModelConfig, xt: torch.Tensor, top_p: torch.Tensor,
     pos = torch.arange(t * k, device=xt.device) - starts[se]  # position within expert
     keep = pos < capacity
     slot = torch.where(keep, pos, 0)
-    buf = torch.zeros((e, capacity, d), dtype=xt.dtype, device=xt.device)
-    buf.index_put_((se, slot), xt[st] * keep[:, None].to(xt.dtype), accumulate=True)
+    buf = torch.zeros((e, capacity, d), dtype=xt.dtype, device=xt.device).index_put(
+        (se, slot), xt[st] * keep[:, None].to(xt.dtype), accumulate=True)
     return buf, se, sp, st, slot, keep
 
 
@@ -532,7 +545,7 @@ def _moe_combine(cfg: ModelConfig, yb: torch.Tensor, se, sp, st, slot, keep,
     gets ``k`` terms (a dropped one adds zero); at k = 2 the sum does not
     depend on the order of the adds."""
     out_tok = yb[se, slot] * (sp * keep)[:, None].to(yb.dtype)
-    return torch.zeros((t, d), dtype=yb.dtype, device=yb.device).index_put_(
+    return torch.zeros((t, d), dtype=yb.dtype, device=yb.device).index_put(
         (st,), out_tok, accumulate=True)
 
 
@@ -543,8 +556,14 @@ def moe_apply(params: dict, cfg: ModelConfig,
     The reference's ``gspmd`` formulation: every token of the batch routes
     into one (E, C, d) buffer of ``C = max(int(capacity_factor·T·k/E), 1)``
     slots an expert, and every expert's buffer goes through the FFN.
-    ``moe_impl="shard_map"`` runs this same path, as the reference does
-    with no mesh in scope; its all-to-all across devices is not ported."""
+    ``moe_impl="shard_map"`` runs :func:`_moe_shard_map` under an ambient
+    mesh with a ``model`` axis that divides the experts, and this same path
+    where the reference's does: no mesh, no ``model`` axis, or
+    ``E % ep != 0``."""
+    if cfg.moe_impl == "shard_map":
+        out = _moe_shard_map(params, cfg, x)
+        if out is not None:
+            return out
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
@@ -555,6 +574,74 @@ def moe_apply(params: dict, cfg: ModelConfig,
     yb = _moe_ffn(params, buf)
     out = _moe_combine(cfg, yb, se, sp, st, slot, keep, t, d)
     return out.reshape(b, s, d), aux
+
+
+def _moe_shard_map(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Expert-parallel MoE over the ambient mesh, the reference's
+    ``_moe_shard_map``: returns (output, aux_loss), or None where no mesh is
+    ambient, it has no ``model`` axis, or ``ep`` (its size) does not divide
+    the experts.
+
+    Each rank takes its batch shard's tokens whole (replicated over
+    ``model``) and its ``E/ep`` experts, routes the tokens locally into an
+    (E, C, d) buffer with ``C`` padded to a multiple of ``ep``, and sends
+    each expert's rows to the rank that owns it with one
+    ``all_to_all_single`` over the ``model`` group, (E, C, d) → (E/ep, C·ep,
+    d); the local experts' FFN runs, and a second all-to-all brings the
+    rows back, (E/ep, C·ep, d) → (E, C, d), to combine. The collective is
+    the autograd-aware functional one, so a train step differentiates
+    through it. ``aux`` is averaged over the batch axes. ``x`` and the
+    parameters may be DTensors of any placement (they are redistributed
+    first) or plain tensors, taken as replicated; the output is a DTensor
+    sharded over the batch axes, or whole where ``x`` was plain. A batch
+    that the batch axes do not divide raises ``ValueError``, as the
+    reference's ``shard_map`` refuses it."""
+    mesh = ambient_mesh()
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    if "model" not in names:
+        return None
+    ep = mesh.size(names.index("model"))
+    e, k = cfg.n_experts, cfg.experts_per_token
+    if e % ep:
+        return None
+    shards = math.prod(mesh.size(i) for i, a in enumerate(names) if a != "model")
+    if x.shape[0] % shards:
+        raise ValueError(f"moe_impl='shard_map': a batch of {x.shape[0]} does not divide "
+                         f"the batch axes' {shards} devices")
+    rows = [Replicate() if a == "model" else Shard(0) for a in names]
+    experts = [Shard(0) if a == "model" else Replicate() for a in names]
+
+    def local(t: torch.Tensor, placements) -> torch.Tensor:
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * len(names), run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    lp = {"router": local(params["router"], [Replicate()] * len(names)),
+          **{w: local(params[w], experts) for w in ("wi", "wg", "wo")}}
+    xl = local(x, rows)
+    bl, s, d = xl.shape
+    t = bl * s
+    xt = xl.reshape(t, d)
+    top_p, top_e, aux = _moe_route(lp, cfg, xt)
+    capacity = max(int(cfg.capacity_factor * t * k / e), 1)
+    capacity = -(-capacity // ep) * ep  # E·C splits evenly across the expert axis
+    buf, se, sp, st, slot, keep = _moe_dispatch(cfg, xt, top_p, top_e, capacity)
+    group = (mesh, names.index("model"))
+    # to expert owners: peer j's (E/ep, C, d) block of my experts lands at j
+    buf = funcol.all_to_all_single_autograd(buf, None, None, group)
+    buf = buf.reshape(ep, e // ep, capacity, d).transpose(0, 1).reshape(e // ep, ep * capacity, d)
+    yb = _moe_ffn(lp, buf)  # the local experts only
+    # back to the token owners: (E/ep, C·ep, d) -> (E, C, d)
+    yb = yb.reshape(e // ep, ep, capacity, d).transpose(0, 1).contiguous()
+    yb = funcol.all_to_all_single_autograd(yb, None, None, group).reshape(e, capacity, d)
+    out = _moe_combine(cfg, yb, se, sp, st, slot, keep, t, d).reshape(bl, s, d)
+    out = DTensor.from_local(out, mesh, rows, run_check=False)
+    aux = DTensor.from_local(aux, mesh, [Replicate() if a == "model" else Partial("avg")
+                                         for a in names], run_check=False)
+    aux = aux.redistribute(mesh, [Replicate()] * len(names))
+    if not isinstance(x, DTensor):
+        return out.full_tensor(), aux.full_tensor()
+    return out, aux
 
 
 # --------------------------------------------------------------------------
@@ -784,7 +871,9 @@ def _wkv_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
 
 def rwkv_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Training/prefill over (B, S, d) from a zero state: the reference's
-    ``lax.scan`` over time is a Python loop over S."""
+    ``lax.scan`` over time is a Python loop over S. On ``meta`` tensors (the
+    dry run's trace) one step stands for all S (``distributed.spmd
+    .traced_once``)."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     nh = d // hd
@@ -800,10 +889,14 @@ def rwkv_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     u = params["bonus"].reshape(nh, hd).expand(b, nh, hd)  # (B,H,K)
 
     state = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
-    outs = []
-    for t in range(s):
-        out, state = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
-        outs.append(out)
+    if x.device.type == "meta":  # the dry run: one step of one shape, weighted by s
+        out, state = traced_once(s, _wkv_step, r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, state)
+        outs = [out] * s
+    else:
+        outs = []
+        for t in range(s):
+            out, state = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
+            outs.append(out)
     out = torch.stack(outs, 1).reshape(b, s, d).to(x.dtype)
     return (out * g) @ params["wo"]
 

@@ -100,6 +100,14 @@ def _remat(body, cfg: ModelConfig):
 FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 
 
+class _MetaGenerator:
+    """Stands in for the ``torch.Generator`` of :meth:`Model.init` in
+    :meth:`Model.abstract_params`: ``layers._dense_init`` draws nothing on a
+    ``meta`` device, and every other leaf is made on this one."""
+
+    device = torch.device("meta")
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -138,6 +146,13 @@ class Model:
 
     # ================================================================ params
 
+    def abstract_params(self) -> dict:
+        """The tree of :meth:`init` as empty tensors on ``torch.device("meta")``:
+        the reference's tree, shapes and dtypes from the shapes alone, with
+        nothing drawn (whole jamba-1.5-large-398b is 397,480,591,360
+        parameters)."""
+        return self._init(_MetaGenerator())
+
     def init(self, seed: int) -> dict:
         """Seeded weights on ``self.device``, in the reference's tree: the
         MoE family has ``layers.moe`` in place of ``layers.mlp``; ``hybrid``
@@ -148,14 +163,16 @@ class Model:
         ``dec_layers.{ln1, self_attn, ln2, cross_attn, ln3, mlp}``. The
         norms of ``ssm`` and ``encdec`` (their final ones too) are
         LayerNorms with a bias ``b``."""
+        return self._init(torch.Generator(device=self.device).manual_seed(seed))
+
+    def _init(self, gen) -> dict:
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         n, d = cfg.n_layers, cfg.d_model
 
         def norm(*shape):
-            w = {"w": torch.ones(shape, dtype=torch.float32, device=self.device)}
+            w = {"w": torch.ones(shape, dtype=torch.float32, device=gen.device)}
             if cfg.family in ("ssm", "encdec"):  # LayerNorm with a bias
-                w["b"] = torch.zeros(shape, dtype=torch.float32, device=self.device)
+                w["b"] = torch.zeros(shape, dtype=torch.float32, device=gen.device)
             return w
 
         params: dict = {
@@ -429,7 +446,22 @@ class Model:
 
     # ================================================================= serve
 
-    def init_cache(self, batch_size: int, max_len: int) -> dict:
+    def input_specs(self, batch_size: int, seq_len: int) -> dict:
+        """Stand-ins on ``torch.device("meta")`` for one training batch:
+        int32 ``tokens`` and ``labels`` (B, S), and for ``vlm`` and ``encdec``
+        the bf16 ``frontend_embeds`` (B, frontend_tokens or
+        encoder_seq_len, d), as the reference's."""
+        cfg = self.cfg
+        meta = torch.device("meta")
+        specs = {key: torch.empty((batch_size, seq_len), dtype=torch.int32, device=meta)
+                 for key in ("tokens", "labels")}
+        rows = {"vlm": cfg.frontend_tokens, "encdec": cfg.encoder_seq_len}.get(cfg.family)
+        if rows is not None:
+            specs["frontend_embeds"] = torch.empty((batch_size, rows, cfg.d_model),
+                                                   dtype=L.COMPUTE_DTYPE, device=meta)
+        return specs
+
+    def init_cache(self, batch_size: int, max_len: int, concrete: bool = True) -> dict:
         """Zeros: a KV cache of ``max_len`` rows a slot, or for ``ssm`` the
         recurrent state, whose size does not depend on ``max_len``. For
         ``encdec`` also the cross-attention's ``xk``/``xv`` of
@@ -442,29 +474,31 @@ class Model:
         and the Mamba layers' f32 ``h`` and bf16 ``conv`` window: the
         reference's attention quantizes only a cache with ``k_scale``, and
         its hybrid cache has none, so ``cache_quant`` changes nothing there
-        either."""
+        either. ``concrete=False`` gives the same tree on
+        ``torch.device("meta")``, nothing allocated."""
         cfg = self.cfg
+        dev = self.device if concrete else torch.device("meta")
         if cfg.family == "hybrid":
             g, m, _ = self._groups()
             d_in, hd = cfg.ssm_expand * cfg.d_model, cfg.head_dim_
             kv = (g, batch_size, max_len, cfg.n_kv_heads, hd)
             return {
-                "k": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=self.device),
-                "v": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=self.device),
+                "k": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=dev),
+                "v": torch.zeros(kv, dtype=L.COMPUTE_DTYPE, device=dev),
                 "h": torch.zeros((g, m, batch_size, d_in, cfg.ssm_state_dim),
-                                 dtype=torch.float32, device=self.device),
+                                 dtype=torch.float32, device=dev),
                 "conv": torch.zeros((g, m, batch_size, cfg.ssm_conv_dim, d_in),
-                                    dtype=L.COMPUTE_DTYPE, device=self.device),
+                                    dtype=L.COMPUTE_DTYPE, device=dev),
             }
         if cfg.family == "ssm":
             n, hd = cfg.n_layers, cfg.rwkv_head_dim
             return {
                 "s": torch.zeros((n, batch_size, cfg.d_model // hd, hd, hd),
-                                 dtype=torch.float32, device=self.device),
+                                 dtype=torch.float32, device=dev),
                 "shift_tm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
-                                        device=self.device),
+                                        device=dev),
                 "shift_cm": torch.zeros((n, batch_size, cfg.d_model), dtype=L.COMPUTE_DTYPE,
-                                        device=self.device),
+                                        device=dev),
             }
         quant = cfg.cache_quant == "int8" and cfg.family != "encdec"
         kv_dtype = torch.int8 if quant else L.COMPUTE_DTYPE
@@ -476,7 +510,7 @@ class Model:
             window = (cfg.encoder_seq_len, cfg.head_dim_, L.COMPUTE_DTYPE)
             leaves.update(xk=window, xv=window)
         return {key: torch.zeros((cfg.n_layers, batch_size, t, cfg.n_kv_heads, width),
-                                 dtype=dtype, device=self.device)
+                                 dtype=dtype, device=dev)
                 for key, (t, width, dtype) in leaves.items()}
 
     def decode_step(

@@ -17,9 +17,9 @@ The counterpart of ``repro/runtime/supervisor.py``:
 * **Straggler mitigation** — per-step wall times feed a rolling median; a
   step exceeding ``factor ×`` the median is flagged and counted.
 * **Placement** — ``reshard`` moves each leaf of a state to the device named
-  for it: the one-device counterpart of the reference's move onto a new
-  mesh's shardings (resharding across cards waits for ``ROADMAP.md``
-  Queue 1, item 6).
+  for it, or, given a mesh, places it as a DTensor with the placements named
+  for it (the reference's move onto a new mesh's shardings, elastic
+  rescale).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import time
 from dataclasses import dataclass, field
 
 from ..checkpoint import CheckpointStore
+from ..distributed.spmd import place
 from ..tree import tree_map
 
 
@@ -106,6 +107,19 @@ class TrainSupervisor:
     # ------------------------------------------------------------- placement
 
     @staticmethod
-    def reshard(state, devices):
-        """Move each leaf of ``state`` to its device in ``devices``."""
-        return tree_map(lambda x, dev: x.to(dev), state, devices)
+    def reshard(state, targets, mesh=None):
+        """Move each leaf of ``state`` to its device in ``targets``, a tree of
+        devices; or, given ``mesh``, place it on the mesh with its placements
+        in ``targets``, a tree of the ``distributed.*_shardings`` (a
+        DTensor leaf is gathered and placed anew)."""
+        if mesh is None:
+            return tree_map(lambda x, dev: x.to(dev), state, targets)
+        return _map_placed(state, targets, lambda x, pl: place(x, mesh, pl))
+
+
+def _map_placed(tree, placements, fn):
+    """``fn(leaf, its placements)`` over a tree of dicts (placements are
+    tuples, so ``tree_map`` would walk into them)."""
+    if isinstance(tree, dict):
+        return {k: _map_placed(v, placements[k], fn) for k, v in tree.items()}
+    return fn(tree, placements)

@@ -459,3 +459,72 @@ def test_profile_from_arch_of_an_unported_family_points_at_the_roadmap(arch):
         jcluster.TenantProfile.from_arch("x", arch)
     with pytest.raises(KeyError, match="unknown arch"):
         tcluster.TenantProfile.from_arch("x", arch)
+
+
+def _shared_port_stream(pkg):
+    """Five launches drawn as ``tests/test_engine.py``'s ``overlap_streams``
+    draws them, from ``random.Random(7)``, with a gap of 0 drawn two times
+    in three (the reference's strategy draws gaps 0-200; a seeded search
+    found this stream in its first ten): each launch a gap, three dims of
+    8-48, 0-39 config fields ``p{j}`` of value 64·(0-3) + j, and a tenant
+    t0-t2. Two t2 launches arrive at 174.0 and two t1 launches at 305.0."""
+    import random
+
+    rng = random.Random(7)
+    rng.randint(3, 8)  # the stream's length, drawn first: 5
+    reqs, t = [], 0.0
+    for _ in range(5):
+        t += float(rng.choice([0, 0, rng.randint(0, 200)]))
+        dims = tuple(8 * rng.randint(1, 6) for _ in range(3))
+        extra = {f"p{j}": rng.randint(0, 3) * 64 + j for j in range(rng.randint(0, 40))}
+        reqs.append(pkg.LaunchRequest(f"t{rng.randint(0, 2)}", dims, extra, arrival_time=t))
+    return reqs
+
+
+@pytest.mark.parametrize("cluster, sched", [(jcluster, jsched), (tcluster, tsched)],
+                         ids=["reference", "port"])
+def test_shared_port_delays_every_launch_keyed_by_request(cluster, sched):
+    """``tests/test_engine.py::test_shared_port_contention_never_completes_earlier``
+    keys each run's ends by (tenant, arrival). Two launches of one tenant
+    at one arrival share that key, the dict keeps the last record, and the
+    private and shared runs list them in different orders: here the key
+    (t1, 305.0) holds the 221,184-op launch's end privately and the
+    98,304-op launch's shared, so the shared run looks 63.5 cycles early.
+    Keyed by request (tenant, arrival, ops: the two launches differ in
+    ops), no launch ends earlier behind the shared port. Both packages
+    give the same records (the cluster model is not at fault)."""
+    reqs = _shared_port_stream(sched)
+    assert [(r.tenant, r.arrival_time) for r in reqs] == [
+        ("t1", 0.0), ("t2", 174.0), ("t2", 174.0), ("t1", 305.0), ("t1", 305.0)]
+
+    def run(shared):
+        cl = cluster.Cluster.uniform(2, {"opengemm": 1}, policy="round_robin", link="noc",
+                                     overlap="serialized", shared_port=shared)
+        return cl.run(list(reqs)).records
+
+    private, shared = run(False), run(True)
+    by_request = [{(r.tenant, r.arrival, r.ops): r.end for r in recs}
+                  for recs in (private, shared)]
+    assert len(by_request[0]) == len(by_request[1]) == len(reqs)  # each launch its own key
+    assert by_request[0].keys() == by_request[1].keys()
+    for key, end in by_request[1].items():
+        assert end >= by_request[0][key] - 1e-9, key
+    assert by_request[0][("t1", 305.0, 98304)] == 455.5
+    assert by_request[1][("t1", 305.0, 98304)] == 512.0
+
+    # the reference test's key collides: five launches, three keys, and the
+    # comparison of the last records under (t1, 305.0) pairs two launches
+    keyed = [{(r.tenant, r.arrival): r.end for r in recs} for recs in (private, shared)]
+    assert len(keyed[0]) == len(keyed[1]) == 3
+    assert keyed[0][("t1", 305.0)] == 575.5 and keyed[1][("t1", 305.0)] == 512.0
+    assert keyed[1][("t1", 305.0)] < keyed[0][("t1", 305.0)]
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_shared_port_stream_records_are_the_references(shared):
+    def records(cluster, sched):
+        cl = cluster.Cluster.uniform(2, {"opengemm": 1}, policy="round_robin", link="noc",
+                                     overlap="serialized", shared_port=shared)
+        return plain(cl.run(_shared_port_stream(sched)).records)
+
+    assert records(jcluster, jsched) == records(tcluster, tsched)

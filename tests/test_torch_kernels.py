@@ -84,7 +84,9 @@ def test_greedy_sample_rejects_what_the_kernel_does_not_take(bad):
         "rank3": x[None],
         "strided": torch.zeros((64, 4)).T,
         "empty_vocab": torch.zeros((4, 0)),
-        "meta": torch.zeros((4, 64), device="meta"),
+        # a meta tensor takes the shape-only route, which keeps the kernel's
+        # checks: a layout the kernel does not take still raises there
+        "meta": torch.zeros((64, 4), device="meta").T,
     }[bad]
     with pytest.raises((TypeError, ValueError)):
         greedy_sample(bad_input)
