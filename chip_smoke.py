@@ -332,6 +332,15 @@ Phases, each printing its results; any failure exits non-zero:
    phase's seconds and its peak memory are printed. The record's
    ``launches_distributed`` are these greedy_sample and top_k launches.
 
+18. The one distribution plan (``phase_dryrun``): ``python -m
+   repro_torch.launch.dryrun`` in processes of their own (its ``fake``
+   process group must not meet the NCCL group of 17), under this
+   machine's torch, on the ``DRYRUN_CELLS``: qwen2-0.5b prefill_32k on the
+   2x16x16 mesh and whisper-medium decode_32k on the 16x16 one. Each must
+   trace (``status: ok``) with the count of each collective and the FLOPs
+   ratio that ``tests/test_torch_dryrun.py`` pins under the CPU tests'
+   torch: the plan is one, whatever the torch.
+
 Float32 products run in full float32 throughout: TF32 is switched off for
 both matmul and cuDNN, so the plain versions are exact f32 references.
 
@@ -368,6 +377,13 @@ PARITY_RTOL, PARITY_ATOL, PARITY_TOP1 = 0.05, 0.15, 0.9  # test_decode_parity's
 # an f32 forward. Over 22 draws of each family, twice (PERF.md §6), correct decodes lay
 # 0.56-1.55x as far as the forward (the hybrid's Mamba state the widest); a fault, 3-50x
 F32_RATIO = 2.0
+# the [dryrun] phase's cells and their plan, pinned by tests/test_torch_dryrun.py too:
+# (arch, shape, multi-pod) -> each collective's count and hlo_flops / model_flops
+DRYRUN_CELLS = {
+    ("qwen2-0.5b", "prefill_32k", True): ({"all-gather": 72, "all-reduce": 49}, 46.64441800400476),
+    ("whisper-medium", "decode_32k", False): ({"all-gather": 9289, "all-reduce": 73},
+                                              36.59224064433404),
+}
 PARITY_ROWS = 8  # B of the forward-vs-decode check: 8 rows of 8 positions
 MAMBA_F32_TOL = 1e-4  # mamba_apply against mamba_step in f32, of the output's largest |y|
 FAULTS = ("kv_row", "state")  # the decode faults _decode_parity must catch
@@ -2117,6 +2133,36 @@ def _mamba_f32(model, params: dict, tag: str, b: int, s: int) -> None:
 
 
 @contextlib.contextmanager
+def _boundaries(seen: list):
+    """Meanwhile the residual stream at every layer boundary of the model's
+    loops (``models.model``'s ``constrain`` calls) is appended to ``seen``
+    as f32 numpy, in call order."""
+    from repro_torch.models import model as M
+
+    pin = M.constrain
+
+    def recorded(x):
+        seen.append(x.detach().float().cpu().numpy())
+        return pin(x)
+
+    M.constrain = recorded
+    try:
+        yield
+    finally:
+        M.constrain = pin
+
+
+def _hybrid_kinds(cfg) -> list[str]:
+    """The layer kind ending at each boundary of a hybrid group after the
+    first (the trunk's entry): attention with its dense MLP, then each
+    Mamba layer with its MLP, MoE at even in-group positions."""
+    kinds = ["attention"]
+    for i in range(cfg.attn_period - 1):
+        kinds.append("Mamba+MoE" if i % 2 == 0 else "Mamba+MLP")
+    return kinds * (cfg.n_layers // cfg.attn_period)
+
+
+@contextlib.contextmanager
 def _stepped_mamba():
     """Meanwhile every ``mamba_apply`` runs ``mamba_step``'s formulation over
     the sequence: the window's products summed in f32 oldest first and
@@ -2198,15 +2244,20 @@ def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int =
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
     calls: list = []
-    stepped = _stepped_mamba() if cfg.family == "hybrid" else contextlib.nullcontext()
+    hybrid = cfg.family == "hybrid"
+    stepped = _stepped_mamba() if hybrid else contextlib.nullcontext()
+    seen = {"fwd": [], "dec": [], "wide": []}  # the hybrid's residual stream a boundary
+    watch = _boundaries if hybrid else lambda _: contextlib.nullcontext()
     with _routes(calls):
-        with stepped:
+        with stepped, watch(seen["fwd"]):
             fwd, aux = model.forward(params, {"tokens": tokens})
         n = len(calls)  # router calls a pass
-        dec = _teacher_forced(model, params, tokens, b)
+        with watch(seen["dec"]):
+            dec = _teacher_forced(model, params, tokens, b)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        wide = _f32_forward(model, params, tokens).cpu().numpy()
+        with watch(seen["wide"]):
+            wide = _f32_forward(model, params, tokens).cpu().numpy()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     padded = _teacher_forced(model, params, tokens, b * s)
     same = torch.equal(padded, fwd)
@@ -2274,6 +2325,20 @@ def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int =
           f"decode's {to_dec.max():.4f} = {ratio:.4f}x (<= {F32_RATIO}); top1 with f32: forward "
           f"{(a.argmax(-1) == wide.argmax(-1)).mean():.4f}, decode "
           f"{(d.argmax(-1) == wide.argmax(-1)).mean():.4f}")
+    by_kind = {}
+    if hybrid:  # the same distance ratio after each layer, by its kind
+        steps = len(seen["dec"]) // s
+        dec_at = [np.concatenate([seen["dec"][i * steps + j] for i in range(s)], 1)
+                  for j in range(steps)]
+        per = cfg.attn_period + 1  # the f32 forward runs a group a trunk: its entry again
+        seen["wide"] = seen["wide"][:1] + [w for g in range(0, len(seen["wide"]), per)
+                                           for w in seen["wide"][g + 1:g + per]]
+        for j, kind in enumerate(_hybrid_kinds(cfg), start=1):
+            f_, w_, d_ = (x[rows, cols] for x in (seen["fwd"][j], seen["wide"][j], dec_at[j]))
+            r_ = float(np.abs(d_ - w_).max() / max(float(np.abs(f_ - w_).max()), 1e-30))
+            by_kind.setdefault(kind, []).append(round(r_, 4))
+        print(f"{tag} the same ratio for the residual stream after each layer, by kind "
+              f"(printed, not decided): {by_kind}; the logits' {ratio:.4f}")
     if ratio > F32_RATIO:
         raise SystemExit(f"{tag} the decode lies {ratio}x as far from the f32 forward as the "
                          f"forward does (> {F32_RATIO})")
@@ -2290,7 +2355,8 @@ def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int =
             raise SystemExit(f"{tag} forward and decode routed tokens apart at margins "
                              f"{wide_flips}, wider than twice the rounding gap {gap}")
     return {"ratio": ratio, "compared": len(compared), "parted": len(parted),
-            "judged": len(judged), "f32_parted": len(f32_parted)}
+            "judged": len(judged), "f32_parted": len(f32_parted),
+            **({"by_kind": by_kind} if by_kind else {})}
 
 
 def _masked_fused_step(model, params, cache: dict) -> None:
@@ -3592,6 +3658,54 @@ def _sharded_against_plain(tag: str, plain, sharded) -> None:
         raise SystemExit(f"{tag} the sharded result differs from the unsharded one")
 
 
+def phase_dryrun(smi: str) -> None:
+    """The one distribution plan under this machine's torch: each of
+    ``DRYRUN_CELLS`` traced by ``python -m repro_torch.launch.dryrun`` in a
+    process of its own, all at once, on the CPU (``fake`` process group,
+    meta tensors; the card unused); each must trace with its pinned
+    collective counts and FLOPs ratio (within 1e-6)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"), "CUDA_VISIBLE_DEVICES": ""}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        runs = {}
+        for arch, shape, pods in DRYRUN_CELLS:
+            out = os.path.join(tmp, f"{arch}_{shape}_{pods}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out", out] + (["--multi-pod"] if pods else [])
+            runs[(arch, shape, pods)] = (subprocess.Popen(cmd, env=env, cwd=root,
+                                                          stdout=subprocess.PIPE,
+                                                          stderr=subprocess.PIPE, text=True), out)
+        try:
+            for cell, (proc, out) in runs.items():
+                _, err = proc.communicate(timeout=300)
+                if proc.returncode or not os.path.exists(out):
+                    raise SystemExit(f"[dryrun] {cell} did not trace (exit {proc.returncode}): "
+                                     f"{err.strip().splitlines()[-1:] if err else ''}")
+                with open(out) as f:
+                    rec = json.load(f)
+                counts = {k: v["count"] for k, v in rec["collectives"].items()}
+                ratio = rec["hlo_flops"] / rec["model_flops"]
+                want, want_ratio = DRYRUN_CELLS[cell]
+                print(f"[dryrun] {cell[0]} {cell[1]} {rec['mesh']} under torch {rec['torch']}: "
+                      f"status {rec['status']}, traced in {rec['trace_s']:.1f} s, collectives "
+                      f"{counts} (pinned {want}), FLOPs {ratio:.4f}x the model's (pinned "
+                      f"{want_ratio:.4f}), collective term {rec['collective_s']:.4g} s, "
+                      f"{rec['per_device_bytes']} bytes a device")
+                if rec["status"] != "ok" or counts != want or abs(ratio - want_ratio) > 1e-6 * ratio:
+                    raise SystemExit(f"[dryrun] {cell}: this torch plans the cell otherwise "
+                                     f"than the pinned plan")
+        finally:
+            for proc, _ in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(f"[dryrun] {len(DRYRUN_CELLS)} cells, one plan, in {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
+
+
 def phase_distributed(smi: str) -> dict:
     """Distribution on one card: a one-rank NCCL group (a ``FileStore``,
     ``world_size=1``) and ``launch.mesh.make_host_mesh()``, a 1x1 ("data",
@@ -3806,6 +3920,7 @@ def main() -> None:
     dense = phase_dense(smi)
     train = phase_train(smi)
     distributed = phase_distributed(smi)
+    phase_dryrun(smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "greedy_sample":

@@ -18,7 +18,9 @@ into heads (a reshape of a sharded dim it cannot keep sharded), as GSPMD
 reshards around the reference's attention einsum.
 
 Scheme:
-* batch dims            → ("pod","data") (DP across pods and the data axis)
+* batch dims            → ("pod","data") (DP across pods and the data axis;
+                          a step runs it on one merged mesh dim,
+                          :func:`step_mesh`)
 * attn/MLP in-proj      → model axis on the output (TP, Megatron-style)
 * attn/MLP out-proj     → model axis on the input
 * MoE expert stacks     → model axis on the expert dim (EP)
@@ -41,6 +43,7 @@ import math
 from torch.distributed.tensor import Replicate, Shard
 
 from ..models.config import ModelConfig
+from .spmd import is_merged, merge
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -56,6 +59,24 @@ def batch_axes(mesh, cfg: ModelConfig | None = None) -> tuple[str, ...]:
     if cfg is not None and cfg.pure_dp:
         axes = axes + ("model",)  # batch over every axis: 256/512-way DP
     return axes
+
+
+def step_mesh(mesh, cfg: ModelConfig | None = None):
+    """The ``DeviceMesh`` a step over ``mesh`` (the reference's axes) runs
+    on: the batch axes (:func:`batch_axes`) merged into one dim of the same
+    ranks, pod-major (``spmd.merge``: ``pod_data``, 32 devices, beside
+    ``model`` at 2×16×16; ``data_model`` under ``pure_dp``), the other axes
+    as they are; ``mesh`` itself where the batch is one axis (every 16×16
+    cell but ``pure_dp``) or ``mesh`` is a step mesh already. So no tensor
+    dim is ever split over two mesh dims, which torch 2.11's DTensor
+    refuses ("hybrid sharding strategies"), and every torch plans the
+    batch over one group. The arguments keep ``mesh`` and the reference's
+    placements (:func:`placements`); ``launch.steps`` carries them over
+    (``spmd.onto``)."""
+    axes = batch_axes(mesh, cfg)
+    if len(axes) == 1 or is_merged(mesh):
+        return mesh
+    return merge(mesh, axes)
 
 
 def _div(mesh, dim: int, axis: str) -> str | None:

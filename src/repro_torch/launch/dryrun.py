@@ -17,10 +17,16 @@ Usage:
         --shape train_4k [--multi-pod] [--preset optimized] \\
         [--override k=v] [--out results/cell.json]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] \\
-        [--out results/cells.json]
+        [--out results/cells.json] [--placements DIR]
 
-``--all`` traces every applicable cell of ``configs.cells()`` in turn, in
-this process, and prints a line a cell and the total seconds.
+``--all`` traces every applicable cell of ``configs.cells()``, a cell a
+process (each its own ``fake`` process group), half the host's cores at a
+time, and prints a line a cell and the total seconds. A cell that raises
+is recorded ``{"status": "failed", "error": ...}`` and the command exits
+1. ``--placements`` writes the placements of every op the step gives
+DTensor (``distributed.spmd.recording``) to a file (one cell) or a file a
+cell in a directory (``--all``): the plans of two torches compare line by
+line.
 
 The record keeps the reference's keys where a torch twin exists:
 
@@ -38,7 +44,11 @@ The record keeps the reference's keys where a torch twin exists:
   and its per-device wire bytes by the reference's ring formulas
   (``hlo_analysis._wire_bytes``) from the collective's result size and
   group size; ``coll_bytes`` is their sum and ``collective_s`` each over
-  the link its group crosses;
+  the link its group crosses; ``collectives_by_op`` counts each kind by
+  the op that issued it (``distributed.spmd.current_op``: an aten op,
+  ``constrain`` at a layer boundary, ``other`` outside both: a
+  redistribution's backward, the optimizer's placements), and
+  ``flops_by_op`` splits ``hlo_flops`` so;
 * the ``RooflineTerms`` (``hlo_analysis``), on the H100's constants.
 
 Keys with no torch twin, left out: ``compile_s`` (there is no compilation;
@@ -56,7 +66,11 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
+import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
@@ -67,7 +81,7 @@ from torch.utils.flop_counter import flop_registry
 
 from ..configs import SHAPES, applicable, cells, get
 from ..distributed.sharding import named_leaves
-from ..distributed.spmd import _F32_OUT, trips
+from ..distributed.spmd import _F32_OUT, current_op, recording, trips
 from ..models.model import Model
 from ..optim import AdamW
 from . import steps as steps_lib
@@ -129,6 +143,8 @@ class _Counter(CommDebugMode):
         super().__init__()
         self.flops = 0
         self.stats = CollectiveStats()
+        self.by_op: dict[str, dict[str, int]] = {}
+        self.flops_by_op: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -140,13 +156,18 @@ class _Counter(CommDebugMode):
             result = out if isinstance(out, torch.Tensor) else out[0]
             for _ in range(trips()):
                 self.stats.add(kind, result.numel() * result.element_size(), group.size())
+            kinds = self.by_op.setdefault(current_op() or "other", {})
+            kinds[kind] = kinds.get(kind, 0) + trips()
         count = flop_registry.get(func._overloadpacket)
         if func in _F32_OUT.values():  # the product's count takes its two operands
             args = args[:2]
         if count is not None and not any(isinstance(a, FakeTensor) for a in args):
             # (DTensor runs each op once on fake tensors of the global shapes,
             # for the output's metadata: that run computes nothing)
-            self.flops += trips() * count(*args, **(kwargs or {}), out_val=out)
+            n = trips() * count(*args, **(kwargs or {}), out_val=out)
+            self.flops += n
+            op = current_op() or "other"
+            self.flops_by_op[op] = self.flops_by_op.get(op, 0) + n
         return out
 
 
@@ -170,11 +191,11 @@ def _local_bytes(tree) -> int:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides: dict | None = None,
-             preset: str = "") -> dict:
+             preset: str = "", placements: str = "") -> dict:
     """One dry-run cell: the record described in the module's docstring, or
     ``{"status": "skipped", "reason": ...}`` where :func:`applicable` says no.
     The reference's ``donate`` has no twin: the port's steps take no
-    donation."""
+    donation. ``placements`` names a file for the ops' placements."""
     cfg = get(arch)
     shape = SHAPES[shape_name]
     chips = 512 if multi_pod else 256
@@ -201,9 +222,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides: dict | None
     for name, arg in zip(names, args):
         arg_bytes[name] = arg_bytes.get(name, 0) + _local_bytes(arg)
     t0 = time.time()
-    with _Counter() as counter:
+    with _Counter() as counter, recording() as log:
         step(*args)
     trace_s = time.time() - t0
+    if placements:
+        os.makedirs(os.path.dirname(placements) or ".", exist_ok=True)
+        with open(placements, "w") as f:
+            f.write("\n".join(log) + "\n")
 
     counts = {str(k).split(".")[-1]: v for k, v in counter.get_comm_counts().items()}
     stats = counter.stats
@@ -222,28 +247,71 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides: dict | None
         coll_s=stats.seconds,
     )
     return {"status": "ok", "kind": kind, "trace_s": trace_s, "arg_bytes": arg_bytes,
-            "comm_counts": counts, **terms.to_dict()}
+            "comm_counts": counts, "collectives_by_op": counter.by_op,
+            "flops_by_op": {k: float(v * chips) for k, v in counter.flops_by_op.items()},
+            "torch": torch.__version__, **terms.to_dict()}
 
 
-def _run_all(args, overrides: dict) -> None:
+def _cell_args(args, arch: str, shape: str) -> list[str]:
+    out = ["--arch", arch, "--shape", shape]
+    if args.multi_pod:
+        out.append("--multi-pod")
+    if args.preset:
+        out += ["--preset", args.preset]
+    for item in args.override:
+        out += ["--override", item]
+    return out
+
+
+def _in_subprocess(args, arch: str, shape: str) -> dict:
+    """One cell in a process of its own: its record, or a ``failed`` one
+    with the end of its errors."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cell.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *_cell_args(args, arch, shape),
+               "--out", out]
+        if args.placements:
+            cmd += ["--placements", os.path.join(args.placements, f"{arch}__{shape}.txt")]
+        t0 = time.time()
+        run = subprocess.run(cmd, capture_output=True, text=True, env=env)
+        wall = time.time() - t0
+        if run.returncode == 0 and os.path.exists(out):
+            with open(out) as f:
+                return {**json.load(f), "wall_s": wall}
+    return {"arch": arch, "shape": shape, "mesh": "pod2x16x16" if args.multi_pod else "pod16x16",
+            "status": "failed", "error": run.stderr[-2000:], "wall_s": wall}
+
+
+def _line(r: dict) -> str:
+    head = f"[dryrun] {r['arch']} × {r['shape']} × {r['mesh']}:"
+    if r["status"] != "ok":
+        said = (r.get("error") or r.get("reason") or "").strip().splitlines()
+        return f"{head} {r['status'].upper()} in {r['wall_s']:.1f} s: " + "".join(said[-1:])
+    return (f"{head} {r['trace_s']:.1f} s, "
+            f"{r['per_device_bytes'] / 2**30:.2f} GiB a device, flops/model "
+            f"{r['hlo_flops'] / r['model_flops']:.2f}, dominant {r['dominant']}, "
+            f"collectives { {k: v['count'] for k, v in r['collectives'].items()} }")
+
+
+def _run_all(args) -> int:
     t0 = time.time()
+    todo = [(arch.name, shape.name) for arch, shape, _, _ in cells()]
     records = []
-    for arch, shape, _, _ in cells():
-        r = run_cell(arch.name, shape.name, args.multi_pod, overrides=overrides or None,
-                     preset=args.preset)
-        records.append(r)
-        print(f"[dryrun] {r['arch']} × {r['shape']} × {r['mesh']}: {r['trace_s']:.1f} s, "
-              f"{r['per_device_bytes'] / 2**30:.2f} GiB a device, flops/model "
-              f"{r['hlo_flops'] / r['model_flops']:.2f}, dominant {r['dominant']}, "
-              f"collectives { {k: v['count'] for k, v in r['collectives'].items()} }",
-              flush=True)
-    print(f"[dryrun] {len(records)} cells in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) // 2)) as pool:
+        for fut in [pool.submit(_in_subprocess, args, a, s) for a, s in todo]:
+            records.append(fut.result())
+            print(_line(records[-1]), flush=True)
+    failed = sum(r["status"] == "failed" for r in records)
+    print(f"[dryrun] {len(records)} cells, {failed} failed, in {time.time() - t0:.1f} s "
+          f"(torch {torch.__version__})")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(records, f, indent=2)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    return 1 if failed else 0
 
 
 def main() -> None:
@@ -257,7 +325,11 @@ def main() -> None:
                    help="optimized = best-known policy from §Perf hillclimbs")
     p.add_argument("--override", action="append", default=[],
                    help="cfg overrides, e.g. --override remat=dots")
+    p.add_argument("--placements", default="",
+                   help="write each op's placements: a file (one cell) or a directory (--all)")
     args = p.parse_args()
+    if args.all:
+        sys.exit(_run_all(args))
 
     overrides = {}
     for item in args.override:
@@ -268,13 +340,10 @@ def main() -> None:
             pass
         overrides[k] = v
 
-    if args.all:
-        _run_all(args, overrides)
-        return
     if not (args.arch and args.shape):
         p.error("--arch and --shape, or --all")
     record = run_cell(args.arch, args.shape, args.multi_pod, overrides=overrides or None,
-                      preset=args.preset)
+                      preset=args.preset, placements=args.placements)
 
     if record["status"] == "ok":
         print(f"[dryrun] {args.arch} × {args.shape} × {record['mesh']}: TRACED "

@@ -7,7 +7,9 @@ placements come from ``distributed`` (:func:`with_shardings`, and
 :func:`abstract_cell_args` for the dry run's meta-local ones), and the same
 step runs the model code on them under ``distributed.sharded``, as the
 reference's ``jax.jit`` lowers one step on the 1-device mesh and on the
-512-chip one.
+512-chip one. The arguments keep the reference's mesh and placements; a
+step carries them onto ``distributed.sharding.step_mesh`` (the batch axes
+as one mesh dim), with no communication, and runs there.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from ..distributed import (
     param_shardings,
     sharded,
 )
-from ..distributed.spmd import place
+from ..distributed.sharding import step_mesh
+from ..distributed.spmd import move, onto, place
 from ..models.config import ModelConfig
 from ..models.model import Model
 from ..optim import AdamW
@@ -41,11 +44,15 @@ def _spmd(x, grad_dtype: torch.dtype = torch.float32):
     return contextlib.nullcontext()
 
 
-def _place_like(x, like):
-    """``x`` redistributed to ``like``'s placements (a DTensor), or as it is."""
-    if isinstance(like, DTensor):
-        return x.redistribute(like.device_mesh, like.placements)
-    return x
+def _on_step_mesh(cfg: ModelConfig, *trees):
+    """``trees`` with every DTensor leaf carried onto the step mesh of the
+    first one's mesh (``distributed.sharding.step_mesh``; ``spmd.onto``);
+    plain trees as they are."""
+    first = next((x for x in leaves(list(trees)) if isinstance(x, DTensor)), None)
+    if first is None:
+        return trees
+    mesh = step_mesh(first.device_mesh, cfg)
+    return tuple(tree_map(lambda x: onto(x, mesh), t) for t in trees)
 
 
 def _replicated(x):
@@ -74,20 +81,24 @@ def build_train_step(model: Model, optimizer: AdamW):
     reduce-scatter along ``data`` where ZeRO shards the state), in bf16
     under compression, else in its own dtype. The update runs on the
     state's shards and the new parameters are gathered back to the
-    parameters' placements. The metrics come back whole on every rank."""
+    parameters' placements. The forward and backward run on the step
+    mesh; the gradients are carried back to the optimizer state's mesh
+    (``spmd.move``), where ZeRO's split over ``data`` alone lives. The
+    metrics come back whole on every rank."""
     compress = model.cfg.grad_compression
 
     def train_step(params, opt_state, batch):
-        flat = [p.detach().requires_grad_() for p in leaves(params)]
+        on_step, batch = _on_step_mesh(model.cfg, params, batch)
+        flat = [p.detach().requires_grad_() for p in leaves(on_step)]
         with _spmd(flat[0], torch.bfloat16 if compress == "bf16" else torch.float32):
             loss, metrics = model.loss(unflatten(params, flat), batch)
             grads = torch.autograd.grad(loss, flat, materialize_grads=True)
             if compress == "bf16":
                 grads = [g.to(torch.bfloat16) for g in grads]
-            grads = [_place_like(g, m) for g, m in zip(grads, leaves(opt_state["m"]))]
+            grads = [move(g, m) for g, m in zip(grads, leaves(opt_state["m"]))]
             new_params, new_opt, opt_metrics = optimizer.update(
                 params, unflatten(params, grads), opt_state)
-            new_params = tree_map(_place_like, new_params, params)
+            new_params = tree_map(move, new_params, params)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return new_params, new_opt, {k: _replicated(v.detach()) for k, v in metrics.items()}
 
@@ -96,6 +107,7 @@ def build_train_step(model: Model, optimizer: AdamW):
 
 def build_prefill_step(model: Model):
     def prefill_step(params, batch):
+        params, batch = _on_step_mesh(model.cfg, params, batch)
         with _spmd(batch["tokens"]):
             logits, _ = model.forward(params, batch)
         return logits
@@ -104,9 +116,15 @@ def build_prefill_step(model: Model):
 
 
 def build_decode_step(model: Model):
+    """``decode_step(params, cache, tokens, pos) -> (logits, cache)``:
+    ``Model.decode_step``, which updates ``cache`` in place; over a mesh on
+    the step mesh, whose DTensors share the local shards of the caller's
+    cache, which is returned."""
     def decode_step(params, cache, tokens, pos):
-        with _spmd(tokens):
-            return model.decode_step(params, cache, tokens, pos)
+        on_step = _on_step_mesh(model.cfg, params, cache, tokens, pos)
+        with _spmd(on_step[2]):
+            logits, _ = model.decode_step(*on_step)
+        return logits, cache
 
     return decode_step
 

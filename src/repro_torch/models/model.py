@@ -37,6 +37,11 @@ max_len, Hkv, 1)). Where the reference donates the cache and gets a new
 one back, the port updates every leaf in place, at a fixed address, and
 returns the same dict.
 
+Over a mesh (DTensor parameters and inputs, ``launch.steps``) every layer
+boundary of the trunk and decode loops passes the residual stream through
+``distributed.spmd.constrain``, which pins it at the reference's layout;
+on plain tensors it is the identity.
+
 ``cfg.attn_chunk`` runs full-sequence attention in online-softmax chunks
 (``layers.chunked_attention``), and ``cfg.remat`` checkpoints each layer
 (``hybrid``: each group) of a full-sequence pass while autograd records
@@ -52,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..distributed.spmd import constrain
 from ..kernels import ops as kernel_ops
 from . import layers as L
 from .config import ModelConfig
@@ -305,8 +311,10 @@ class Model:
             return x + y, aux if a is None else aux + a
 
         body = _remat(body, cfg)
+        x = constrain(x)
         for lp in _layers(trunk, cfg.n_layers):
             x, aux = body(x, aux, lp)
+            x = constrain(x)
         return x, aux
 
     def _hybrid_trunk(self, trunk: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -324,6 +332,7 @@ class Model:
             x = x + L.attention_apply(
                 gp["attn"], cfg, _norm(gp["attn_norm"], x, cfg.norm_eps), positions)
             x = x + L.mlp_apply(gp["attn_mlp"], _norm(gp["attn_mlp_norm"], x, cfg.norm_eps))
+            x = constrain(x)
             moes, mlps = _layers(gp["mamba_moe"], n_moe), _layers(gp["mamba_mlp"], m - n_moe)
             mamba = zip(_layers(gp["mamba_norm"], m), _layers(gp["mamba"], m),
                         _layers(gp["mamba_mlp_norm"], m))
@@ -335,10 +344,11 @@ class Model:
                     aux = aux + a
                 else:
                     y = L.mlp_apply(mlps[i // 2], y)
-                x = x + y
+                x = constrain(x + y)
             return x, aux
 
         body = _remat(body, cfg)
+        x = constrain(x)
         for gp in _layers(trunk, g):
             x, aux = body(x, aux, gp)
         return x, aux
@@ -353,8 +363,9 @@ class Model:
             return x + L.rwkv_channel_mix(lp["cm"], h, shifted)
 
         body = _remat(body, cfg)
+        x = constrain(x)
         for lp in _layers(trunk, cfg.n_layers):
-            x = body(x, lp)
+            x = constrain(body(x, lp))
         return x
 
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -372,8 +383,9 @@ class Model:
             return x + L.mlp_apply(lp["mlp"], _norm(lp["ln2"], x, cfg.norm_eps))
 
         body = _remat(body, cfg)
+        x = constrain(x)
         for lp in _layers(params["enc_layers"], cfg.n_encoder_layers):
-            x = body(x, lp)
+            x = constrain(body(x, lp))
         return _norm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def cross_kv(self, params: dict, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -412,8 +424,9 @@ class Model:
             return x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
 
         body = _remat(body, cfg)
+        x = constrain(x)
         for lp in _layers(params["dec_layers"], cfg.n_layers):
-            x = body(x, lp)
+            x = constrain(body(x, lp))
         x = _norm(params["final_norm"], x, cfg.norm_eps)
         return x @ self._head(params), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -631,13 +644,14 @@ class Model:
                         pos: torch.Tensor, update_mask: torch.Tensor | None) -> torch.Tensor:
         cfg = self.cfg
         positions = pos[:, None]
+        x = constrain(x)
         for i in range(cfg.n_layers):
             lp = _layer(trunk, i)
             layer_cache = {key: leaf[i] for key, leaf in cache.items()}  # views
             x = x + L.attention_apply(
                 lp["attn"], cfg, _norm(lp["attn_norm"], x, cfg.norm_eps), positions,
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)
-            x = x + self._mlp(lp, x)[0]
+            x = constrain(x + self._mlp(lp, x)[0])
         return x
 
     def _hybrid_decode(self, trunk: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
@@ -651,13 +665,15 @@ class Model:
         g, m, _ = self._groups()
         fresh = (pos == 0).view(1, 1, -1, 1, 1)
         state = {key: torch.where(fresh, 0.0, cache[key]) for key in ("h", "conv")}
+        x = constrain(x)
         for gi in range(g):
             gp = _layer(trunk, gi)
             layer_cache = {"k": cache["k"][gi], "v": cache["v"][gi]}  # views
             x = x + L.attention_apply(
                 gp["attn"], cfg, _norm(gp["attn_norm"], x, cfg.norm_eps), pos[:, None],
                 cache=layer_cache, cache_pos=pos, update_mask=update_mask)
-            x = x + L.mlp_apply(gp["attn_mlp"], _norm(gp["attn_mlp_norm"], x, cfg.norm_eps))
+            x = constrain(
+                x + L.mlp_apply(gp["attn_mlp"], _norm(gp["attn_mlp_norm"], x, cfg.norm_eps)))
             for i in range(m):
                 h = _norm(_layer(gp["mamba_norm"], i), x, cfg.norm_eps)
                 y, st = L.mamba_step(_layer(gp["mamba"], i), cfg, h,
@@ -669,13 +685,14 @@ class Model:
                     y = L.moe_apply(_layer(gp["mamba_moe"], i // 2), cfg, y)[0]
                 else:
                     y = L.mlp_apply(_layer(gp["mamba_mlp"], i // 2), y)
-                x = x + y
+                x = constrain(x + y)
         return x
 
     def _encdec_decode(self, trunk: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
                        update_mask: torch.Tensor | None) -> torch.Tensor:
         cfg = self.cfg
         b = x.shape[0]
+        x = constrain(x)
         for i in range(cfg.n_layers):
             lp = _layer(trunk, i)
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}  # views
@@ -687,7 +704,7 @@ class Model:
             q = L._split_heads(h @ lp["cross_attn"]["wq"], cfg.n_heads)
             o = L.cross_attend(q, cache["xk"][i], cache["xv"][i])
             x = x + o.reshape(b, 1, -1) @ lp["cross_attn"]["wo"]
-            x = x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps))
+            x = constrain(x + L.mlp_apply(lp["mlp"], _norm(lp["ln3"], x, cfg.norm_eps)))
         return x
 
     def _rwkv_decode(self, trunk: dict, cache: dict, x: torch.Tensor, fresh: torch.Tensor,
@@ -702,6 +719,7 @@ class Model:
         state = {"s": torch.where(fresh[..., None, None], 0.0, cache["s"]),
                  "shift_tm": torch.where(fresh, 0.0, cache["shift_tm"]),
                  "shift_cm": torch.where(fresh, 0.0, cache["shift_cm"])}
+        x = constrain(x)
         for i in range(cfg.n_layers):
             lp = _layer(trunk, i)
             h = _norm(lp["tm_norm"], x, cfg.norm_eps)
@@ -709,7 +727,7 @@ class Model:
                                                   "shift": state["shift_tm"][i]})
             x = x + y
             h = _norm(lp["cm_norm"], x, cfg.norm_eps)
-            x = x + L.rwkv_channel_mix(lp["cm"], h[:, 0], state["shift_cm"][i])[:, None]
+            x = constrain(x + L.rwkv_channel_mix(lp["cm"], h[:, 0], state["shift_cm"][i])[:, None])
             self._masked_cache(cache, {"s": st["s"], "shift_tm": st["shift"],
                                        "shift_cm": h[:, 0]}, update_mask, i)
         return x

@@ -6,6 +6,7 @@ MoE router."""
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import pathlib
@@ -15,6 +16,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch import configs as tconfigs
 from repro_torch.kernels import ops, sampling
 from repro_torch.launch.hlo_analysis import (
     HBM_BW,
@@ -94,6 +96,81 @@ def test_the_dry_run_traces_a_cell_without_jax(tmp_path, arch, shape, extra, kin
                           rec["per_device_bytes"], coll_s=rec["collective_s"])
     assert terms.to_dict() | {"collectives": rec["collectives"]} == \
         {k: rec[k] for k in terms.to_dict()}
+
+
+def _plan() -> dict:
+    """The one plan, whatever the torch: each collective's count by kind and
+    the FLOPs over the model's, as torch 2.13 (here) and 2.11 (the H100
+    machine's) both trace them: ``chip_smoke.py``'s ``DRYRUN_CELLS``, which
+    its ``[dryrun]`` phase holds the card machine's torch to, and jamba's
+    decode."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return {**chip_smoke.DRYRUN_CELLS,
+            ("jamba-1.5-large-398b", "decode_32k", False): (
+                {"all-gather": 279, "all-reduce": 253}, 9.924046891706395)}
+
+
+PLAN = _plan()
+
+
+@pytest.mark.parametrize("arch,shape,pods", list(PLAN))
+def test_the_one_plan_pins_each_collective_count(tmp_path, arch, shape, pods):
+    """A torch that plans a cell otherwise (another collective, another
+    placement of an op's output) fails here: the counts by kind are equal
+    and the FLOPs within 1e-6. Every collective is charged to the op that
+    issued it; whisper's decode's all-gathers are its cross-attention's
+    per-row ``select`` of the batch-split encoder K/V (``layers.cross_attend``,
+    a ``bmm`` a batch row: 24 layers × 128 rows × q, k and v), and
+    qwen2-0.5b's embedding is looked up into a partial sum (rule 7)."""
+    placements = tmp_path / "placements.txt"
+    rec = _cell(tmp_path, "--arch", arch, "--shape", shape, *(["--multi-pod"] if pods else []),
+                "--placements", str(placements))
+    want, ratio = PLAN[(arch, shape, pods)]
+    assert rec["status"] == "ok" and rec["mesh"] == ("pod2x16x16" if pods else "pod16x16")
+    assert {k: v["count"] for k, v in rec["collectives"].items()} == want
+    assert rec["hlo_flops"] / rec["model_flops"] == pytest.approx(ratio, rel=1e-6)
+    by_op = {}
+    for kinds in rec["collectives_by_op"].values():
+        for kind, n in kinds.items():
+            by_op[kind] = by_op.get(kind, 0) + n
+    assert by_op == want
+    lines = placements.read_text().splitlines()
+    assert lines and all(" -> " in line for line in lines)
+    if arch == "whisper-medium":
+        assert rec["collectives_by_op"]["aten.select.int"] == {"all-gather": 24 * 128 * 3}
+    if arch == "qwen2-0.5b":  # on the step mesh: the batch over pod_data, the vocabulary split
+        assert lines[0].startswith("aten.index.Tensor (R,S0)151936x896 (S0,R)32x32768 -> "
+                                   "(S0,P)32x32768x896")
+
+
+@pytest.mark.parametrize("override,status", [((), "ok"), (("no_such_knob=1",), "failed")])
+def test_all_traces_a_cell_a_process_and_records_a_refusal(tmp_path, monkeypatch, capsys,
+                                                           override, status):
+    """``--all`` traces each cell in a process of its own: a cell that
+    traces is recorded ``ok``, one that raises (an unknown override) is
+    recorded ``failed`` with its error, never skipped, and the command
+    exits 1."""
+    from repro_torch.launch import dryrun
+
+    one = [c for c in tconfigs.cells() if (c[0].name, c[1].name) == ("qwen2-0.5b", "decode_32k")]
+    monkeypatch.setattr(dryrun, "cells", lambda: one)
+    out = tmp_path / "cells.json"
+    args = argparse.Namespace(multi_pod=False, preset="", override=list(override),
+                              placements="", out=str(out))
+    assert dryrun._run_all(args) == (status != "ok")
+    (rec,) = json.loads(out.read_text())
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["status"]) == \
+        ("qwen2-0.5b", "decode_32k", "pod16x16", status)
+    if status == "ok":
+        assert {k: v["count"] for k, v in rec["collectives"].items()} == \
+            {"all-gather": 96, "all-reduce": 73}
+    else:
+        assert "no_such_knob" in rec["error"]
+    said = capsys.readouterr().out
+    assert "[dryrun] qwen2-0.5b × decode_32k × pod16x16:" in said
+    assert ("FAILED" in said) == (status == "failed")
 
 
 def test_the_moe_all_to_all_is_traced_under_shard_map(tmp_path):

@@ -321,3 +321,46 @@ def test_device_mesh_placements_match_the_specs(fake_world, name, knob, mesh_nam
             assert tuple(dt.to_local().shape) == tsharding.shard_shape(
                 mesh, tuple(leaf.shape), spec_of[path].spec)
             assert dt.to_local().device.type == "meta"
+
+
+def test_a_step_runs_the_batch_axes_on_one_mesh_dim(fake_world):
+    """``step_mesh``: at 2×16×16 the batch axes as one ``pod_data`` dim of
+    32, pod-major, over the same ranks (``pure_dp``: every axis as one);
+    at 16×16 the mesh itself. ``spmd.onto`` carries an input leaf over
+    with its local shard, and refuses ZeRO's split over ``data`` alone,
+    which has no placement there; ``spmd.move`` brings a tensor of the
+    step mesh back to the reference's mesh and placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import with_shardings
+
+    fake_world(256)
+    mesh = make_production_mesh(device_type="cpu")
+    cfg = tconfigs.get("qwen2-0.5b")
+    assert tsharding.step_mesh(mesh, cfg) is mesh
+    fake_world(512)
+    mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+    step = tsharding.step_mesh(mesh, cfg)
+    assert step.mesh_dim_names == ("pod_data", "model") and tuple(step.shape) == (32, 16)
+    assert step.mesh.flatten().tolist() == mesh.mesh.flatten().tolist()
+    assert tsharding.step_mesh(mesh, cfg) is step and tsharding.step_mesh(step, cfg) is step
+    pure = tsharding.step_mesh(mesh, dataclasses.replace(cfg, pure_dp=True))
+    assert pure.mesh_dim_names == ("pod_data_model",) and tuple(pure.shape) == (512,)
+
+    (_, tp), (_, to), (_, ti), _ = _trees("qwen2-0.5b")
+    inputs = with_shardings(ti, tsharding.input_shardings(mesh, ti, cfg), mesh)
+    tokens = inputs["tokens"]
+    assert tokens.placements == (Shard(0), Shard(0), Replicate())
+    moved = spmd.onto(tokens, step)
+    assert moved.placements == (Shard(0), Replicate()) and moved.shape == tokens.shape
+    assert moved.to_local().shape == tokens.to_local().shape == (BATCH // 32, SEQ)
+    opt = with_shardings(to, tsharding.opt_state_shardings(mesh, to, cfg), mesh)
+    wq = opt["m"]["layers"]["attn"]["wq"]
+    assert wq.placements[:2] == (Replicate(), Shard(1))  # ZeRO: over data alone
+    with pytest.raises(ValueError, match="no one placement"):
+        spmd.onto(wq, step)
+    back = spmd.move(spmd.onto(with_shardings(tp, tsharding.param_shardings(mesh, tp, cfg),
+                                              mesh)["layers"]["attn"]["wq"], step), wq)
+    assert back.device_mesh is mesh and back.placements == wq.placements
