@@ -8,12 +8,13 @@ Phases, each printing its results; any failure exits non-zero:
 1. Device: the card's name, the device count, and nvidia-smi's name and
    power limit. No CUDA device is a failure.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc/`` with nvcc for
-   sm_90a, one nvcc per source, all started together, with the build
-   seconds and the ``-Xptxas -v`` register and shared-memory report. Then
-   the seeded draw: ``layers._dense_init`` fills a stack of layers a part
-   of at most one layer at a time, and must give one stacked f32 draw's
-   numbers bit for bit, and its generator offset, at the served stacks'
-   shapes, so every phase's seeded weights are a stacked draw's.
+   sm_90a, one nvcc per source, all started together, then each loaded,
+   with the nvcc and load times and the ``-Xptxas -v`` register and
+   shared-memory report. Then the seeded draw: ``layers._dense_init``
+   fills a stack of layers a part of at most one layer at a time, and
+   must give one stacked f32 draw's numbers bit for bit, and its generator
+   offset, at the served stacks' shapes, so every phase's seeded weights
+   are a stacked draw's.
 3. Kernel check of greedy_sample against its plain PyTorch version on the
    card, exactly, at the serving path's shapes, on adversarial rows and on
    ties and NaNs straddling the chunk boundaries of its cluster split, each
@@ -563,10 +564,16 @@ def _routed(wrapper, fn) -> tuple:
 
 
 def phase_build() -> None:
+    """Every kernel built (one ``nvcc`` each, all started together) and
+    loaded: each ``[build]`` line gives the ``nvcc`` run's and the load's
+    time from ``_build.builds()``."""
     from repro_torch.kernels import _build
 
     for b in _build.build_all(_build.kernel_names()):
-        print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
+        _build.load(b.name)
+    for b in _build.builds():
+        load_ms = (b.load_ns[1] - b.load_ns[0]) / 1e6
+        print(f"[build] {b.name}: nvcc {b.seconds:.2f} s, load {load_ms:.1f} ms -> {b.path.name}")
         for line in b.log.splitlines():
             print(f"[build]   {line}")
 

@@ -10,12 +10,15 @@ minutes.
 There is no fallback: a missing ``nvcc`` or a failed build raises, and so
 does a launch whose C entry point returns a CUDA error (:func:`check`).
 :func:`sm_count` gives the card's SM count, by which the wrappers' plans
-size their grids.
+size their grids. :func:`builds` gives what this process built and loaded,
+each ``nvcc`` run and ``ctypes`` load stamped by ``time.perf_counter_ns`` and
+placed on ``torch.profiler``'s clock (Unix ns) as the serve driver's spans.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -38,12 +41,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class Build:
     name: str
     path: Path
-    seconds: float  # wall time of the nvcc run
+    nvcc_ns: tuple[int, int]  # the nvcc run's start and end, on the profiler's clock
     log: str  # nvcc's output: the -Xptxas -v register and shared-memory report
+    load_ns: tuple[int, int] | None = None  # the ctypes.CDLL load, once loaded
+
+    @property
+    def seconds(self) -> float:
+        """Wall time of the nvcc run."""
+        return (self.nvcc_ns[1] - self.nvcc_ns[0]) / 1e9
 
 
 _builds: dict[str, Build] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def _offset_ns() -> int:
+    """What places a ``time.perf_counter_ns`` stamp on the profiler's clock."""
+    return time.time_ns() - time.perf_counter_ns()
 
 
 def kernel_names() -> list[str]:
@@ -62,15 +76,15 @@ def build(name: str) -> Build:
     # written aside and renamed, so a process that loads the library while
     # another builds it never maps a half-written file
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
+    offset, t0 = _offset_ns(), time.perf_counter_ns()
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
+    t1 = time.perf_counter_ns()
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
     os.replace(tmp, target)
-    _builds[name] = Build(name, target, seconds, proc.stdout)
+    _builds[name] = Build(name, target, (t0 + offset, t1 + offset), proc.stdout)
     return _builds[name]
 
 
@@ -82,10 +96,22 @@ def build_all(names: list[str]) -> list[Build]:
         return [f.result() for f in futures]
 
 
+def builds() -> list[Build]:
+    """Each kernel this process built, in build order: its ``nvcc`` run and,
+    once loaded, its load. A process compiles each source it uses once and
+    takes nothing from another process's build, so every kernel listed was
+    compiled anew here."""
+    return list(_builds.values())
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
     if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build(name).path))
+        path = build(name).path
+        offset, t0 = _offset_ns(), time.perf_counter_ns()
+        _libs[name] = ctypes.CDLL(str(path))
+        t1 = time.perf_counter_ns()
+        _builds[name] = dataclasses.replace(_builds[name], load_ns=(t0 + offset, t1 + offset))
     return _libs[name]
 
 

@@ -108,6 +108,42 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build("greedy_sample")
 
 
+def test_builds_lists_each_nvcc_run_and_load_on_the_profilers_clock(monkeypatch, tmp_path):
+    """With a stub ``nvcc`` (it writes its ``-o`` file and a line of log) and
+    a stub ``ctypes.CDLL``: ``builds()`` holds one record a kernel built, in
+    build order, however often it is built or loaded; its ``nvcc`` run and
+    its load lie between two reads of ``time.time_ns`` around them, and
+    ``seconds`` is the ``nvcc`` span's length."""
+    import time
+
+    stub = tmp_path / "nvcc"
+    stub.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do if [ "$1" = -o ]; then shift; : > "$1"; '
+                    'fi; shift; done\necho "ptxas info: stub"\n')
+    stub.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(stub))
+    monkeypatch.setattr(_build, "_builds", {})
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    loaded = []
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: loaded.append(path) or object())
+    assert _build.builds() == []
+    before = time.time_ns()
+    first = _build.build("top_k")
+    _build.build("top_k")
+    _build.load("greedy_sample")
+    _build.load("greedy_sample")
+    after = time.time_ns()
+    got = _build.builds()
+    assert [b.name for b in got] == ["top_k", "greedy_sample"]
+    assert loaded == [str(tmp_path / "build" / "libgreedy_sample.so")]
+    assert got[0] is first and first.load_ns is None and "ptxas info: stub" in first.log
+    for b in got:
+        assert before <= b.nvcc_ns[0] <= b.nvcc_ns[1] <= after
+        assert b.seconds == (b.nvcc_ns[1] - b.nvcc_ns[0]) / 1e9
+    load = got[1].load_ns
+    assert got[1].nvcc_ns[1] <= load[0] <= load[1] <= after
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     """The hand-written kernel against its plain version on the card,

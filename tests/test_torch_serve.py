@@ -32,6 +32,7 @@ from repro_torch.configs import get as torch_get
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.serve import MODES, serve
 from repro_torch.models.model import Model as TorchModel
+from repro_torch.obs.export import chrome_trace, validate_trace
 
 SEED = 3
 BATCH, STEPS, CACHE_LEN, FUSE = 2, 19, 24, 4  # fused: launches of 4, 4, 4 and a tail of 3
@@ -175,6 +176,64 @@ def test_reference_clamps_a_scalar_pos_past_max_len_onto_the_last_row(pair):
                            max_len + 1)
 
 
+def _self_ns(span, host) -> int:
+    """A host span's time outside its children (the spans that name it as
+    their parent, a launch's by its ``launch`` tag too)."""
+    kids = [s for s in host if s.tags["parent"] == span.name
+            and s.tags.get("launch") == span.tags.get("launch", s.tags.get("launch"))]
+    return span.cycles - sum(s.cycles for s in kids)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_serve_records_one_span_tree_a_call(pair, mode):
+    """One ``serve.call`` a call; its children nest inside it one after
+    another, share its ``call`` id and leave it self time; ``wall_s``,
+    ``capture_s`` and ``issue_ms`` read the spans; the ids are the plain
+    loop's; the trace exports to a loadable Chrome trace."""
+    *_, tmodel, tparams = pair
+    run = _serve(tmodel, tparams, mode)
+    again = _serve(tmodel, tparams, mode)
+    assert run.trace.lanes() == ["host"]  # the device lane is a card's
+    host = run.trace.spans
+    (call,) = run.host("serve.call")
+    assert call.tags["parent"] is None and call.cat == "launch"
+    assert {s.tags["call"] for s in host} == {call.tags["call"]}
+    assert again.host("serve.call")[0].tags["call"] != call.tags["call"]
+
+    children = sorted((s for s in host if s.tags["parent"] == "serve.call"), key=lambda s: s.start)
+    fused = mode == "fused"
+    assert [s.name for s in children] == ["serve.cache", "serve.warmup",
+                                          *(["serve.capture"] if fused else []),
+                                          "serve.loop", "serve.gather"]
+    assert call.start <= children[0].start and children[-1].end <= call.end
+    assert all(a.end <= b.start for a, b in zip(children, children[1:]))
+    (loop,) = run.host("serve.loop")
+    launches = run.host("serve.launch")
+    assert [s.tags["launch"] for s in launches] == list(range(len(launches)))
+    assert all(s.tags["parent"] == "serve.loop" for s in launches)
+    assert loop.start <= launches[0].start and launches[-1].end <= loop.end
+    assert all(a.end <= b.start for a, b in zip(launches, launches[1:]))
+    waits = run.host("serve.wait")
+    assert len(waits) == (len(launches) if mode == "sequential" else 0)
+    for wait, launch in zip(waits, launches):
+        assert wait.tags["launch"] == launch.tags["launch"] and wait.cat == "stall"
+        assert launch.start <= wait.start and wait.end <= launch.end
+    assert all(_self_ns(s, host) >= 0 for s in host)
+    assert sum(run.seconds_by_span().values()) == pytest.approx(call.cycles / 1e9)
+    assert run.seconds_by_span()["self"] >= 0
+
+    assert run.wall_s == loop.cycles / 1e9
+    assert run.capture_s == sum(s.cycles for s in run.host("serve.capture")) / 1e9
+    assert len(run.issue_ms) == len(launches) == run.launches
+    assert run.issue_ms == [(s.cycles - sum(w.cycles for w in waits if w.tags["launch"] == i)) / 1e6
+                            for i, s in enumerate(launches)]
+
+    want = _eager_fused_ids(tmodel, tparams, batch=BATCH, steps=STEPS, cache_len=CACHE_LEN,
+                            fuse=FUSE if fused else 1)
+    torch.testing.assert_close(run.ids, want, rtol=0, atol=0)
+    assert validate_trace(chrome_trace(run.trace)) == []
+
+
 def _eager_fused_ids(model, params, *, batch: int, steps: int, cache_len: int,
                      fuse: int) -> torch.Tensor:
     """The reference's fused schedule as a plain loop of ``decode_step`` and
@@ -215,3 +274,54 @@ def test_cuda_fused_graph_replay_equals_the_eager_loop():
     for mode, fuse in (("concurrent", FUSE), ("fused", 1)):
         torch.testing.assert_close(_serve(model, params, mode, fuse=fuse).ids, seq.ids,
                                    rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_spans_lie_on_the_profilers_clock():
+    """On the card. Under ``torch.profiler``, each program ``serve.launch``
+    span lies within 50 us of the profiler's range of that name. The device
+    intervals are held to the host's spans on the one clock, with and
+    without a profiler: a launch's interval starts no earlier than its host
+    span, less 50 us (its start event is recorded just before the span), and
+    ends no later than the next one starts; the last ends
+    inside ``serve.loop``, whose synchronise waits for it; the warm-up's lies
+    between its span's start and the end of ``serve.capture``, whose
+    synchronise drains it. (The profiler's own device timestamps are no
+    reference: on an H100 with torch 2.11 they sat 0.3 to 260 ms off its
+    host events and drifted by up to 2 % within one profile.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs and the kernel have no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    model = TorchModel(dataclasses.replace(torch_get("qwen2-0.5b"), remat="none"), device="cuda")
+    params = model.init(SEED)
+    shape = dict(batch=4, steps=8 + 8 * 6, cache_len=64, mode="fused", fuse=8)
+    serve(model, params, **shape)  # kernels built, shapes warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = serve(model, params, **shape)
+    plain = serve(model, params, **shape)
+    tol = 50_000  # ns
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name() == "serve.launch" and e.device_type() != torch.autograd.DeviceType.CUDA)
+    spans = traced.host("serve.launch")
+    assert len(ranges) == len(spans) == 6
+    for (r0, r1), s in zip(ranges, spans):
+        assert abs(s.start - r0) <= tol and abs(s.end - r1) <= tol, (s.start - r0, s.end - r1)
+
+    lane = f"compute[cuda:{torch.cuda.current_device()}]"
+    for run in (traced, plain):
+        card = {(s.name, s.tags.get("launch")): s for s in run.trace.spans if s.cat == "compute"}
+        assert {s.lane for s in card.values()} == {lane} and len(card) == 7
+        launches = [card["serve.launch", i] for i in range(6)]
+        edges = [(dev.start - host.start, dev.end - dev.start,
+                  None if after is None else after.start - dev.end)
+                 for host, dev, after in zip(run.host("serve.launch"), launches,
+                                             launches[1:] + [None])]
+        assert all(begun >= -tol and length >= 0 and (gap is None or gap >= -1_000)
+                   for begun, length, gap in edges), edges
+        assert launches[-1].end <= run.host("serve.loop")[0].end + tol
+        warm = card["serve.warmup", None]
+        (host_warm,), (capture,) = run.host("serve.warmup"), run.host("serve.capture")
+        assert host_warm.start - tol <= warm.start <= warm.end <= capture.end + tol, \
+            (warm.start - host_warm.start, warm.end - capture.end)
