@@ -21,6 +21,19 @@ Phases, each printing its results; any failure exits non-zero:
    call printing its cluster size; then its time at B = 1, 4 and 64, the
    plain version's, the PyTorch library call's, top_k(x, 1)'s and its
    bound, and its time at each cluster size the card places.
+3b. decode_attention on the card at every head width and group count the
+   port decodes with (and the reduced configurations' D 16, G 2), one
+   shared position and one a row (0, T - 1 and past T among them), on
+   caches of 300 rows (three slices and their merge) and 100 (one), at the
+   engine's shape (qwen2-0.5b: B 4, Hkv 2, G 7, D 64, T 512, four slices)
+   and at phi4-mini's served cells (B 128, T 1,152 at positions 575 and
+   1,151; B 256, T 256 at 255): each call within
+   test_torch_decode_attention.py's tolerance of the plain version and
+   within ``ref.decode_attention_f64``'s limit of a float64 computation,
+   both versions' distance from the latter printed; then timed by CUDA
+   graph at the served cells beside the plain version and its bound (the
+   attended K/V rows, q and the output, once). The record's ``launches``
+   are the main path's (4).
 4. Main path: full-width qwen2-0.5b with seeded weights, served by
    ``ServingEngine(sampling="fused")`` (8 requests), with the kernels' launch
    counts read just after; then the same requests with ``sampling="host"``,
@@ -712,6 +725,101 @@ def phase_kernel_check(smi: str) -> dict:
                    ms_b64=timed[64][0]["ms"], library_ms_b64=timed[64][0]["library_ms"])
 
 
+DA_RTOL = DA_ATOL = 0.02  # test_torch_decode_attention.py's, and its reason
+
+
+def _decode_attention_inputs(b: int, t: int, hkv: int, g: int, d: int, pos: torch.Tensor,
+                             seed: int) -> tuple:
+    """q, the K and V caches as layer views of a stacked cache, the new k and
+    v, and the positions: a decode attention's arguments on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    stacked = {k: randn(2, b, t, hkv, d) for k in ("k", "v")}
+    return (randn(b, 1, hkv * g, d), stacked["k"][1], stacked["v"][1], randn(b, 1, hkv, d),
+            randn(b, 1, hkv, d), pos)
+
+
+def check_decode_attention(smi: str) -> dict:
+    """decode_attention against its plain version and within the float64
+    computation's limit at every (D, G), at the engine's shape and at the
+    served cells' shapes, then timed at the latter (3b)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.decode_attention import decode_attention, plan_decode_attention
+
+    worst = {"err": 0.0, "share": 0.0}
+
+    def gate(args, where: str) -> None:
+        """One call held to the plain version within DA_RTOL, DA_ATOL and to
+        float64 within ``ref.decode_attention_f64``'s limit."""
+        got, want = decode_attention(*args), ref.decode_attention_ref(*args)
+        exact, limit = ref.decode_attention_f64(*args)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        share, plain_share = (float(((x.double() - exact).abs() / limit).max())
+                              for x in (got, want))
+        b, t, hkv = args[1].shape[:3]
+        print(f"[decode_attention] {where}, {plan_decode_attention(b, hkv, t, _build.sm_count(0))}"
+              f": max_abs_err={err:.5f}; from float64: kernel {_max_err(got, exact):.5f} "
+              f"({100 * share:.1f} % of the limit), plain {_max_err(want, exact):.5f} "
+              f"({100 * plain_share:.1f} %)")
+        if not torch.allclose(got.float(), want.float(), rtol=DA_RTOL, atol=DA_ATOL):
+            raise SystemExit(f"decode_attention disagrees with its plain version at {where}")
+        if share > 1:
+            raise SystemExit(f"decode_attention lies past the float64 limit at {where}")
+        worst["err"], worst["share"] = max(worst["err"], err), max(worst["share"], share)
+
+    b = 5  # with 4 K/V heads: 3 slices of a cache of 300 rows, 1 of 100
+    for d in (64, 96, 112, 128, 16):
+        for g in (1, 3, 4, 5, 7, 8, 2):
+            for t in (300, 100):
+                for label, pos in (("shared", torch.full((b,), t // 2, device="cuda")),
+                                   ("per row", torch.tensor([0, t - 1, t + 5, 31, 32],
+                                                            dtype=torch.int32, device="cuda"))):
+                    gate(_decode_attention_inputs(b, t, 4, g, d, pos, seed=d + g + t),
+                         f"D={d} G={g} T={t} {label} positions")
+    # the engine's (qwen2-0.5b's 4 slots of 512): 4 slices and their merge
+    for label, pos in (("shared", torch.full((4,), 300, device="cuda")),
+                       ("per row", torch.tensor([0, 511, 515, 200], device="cuda"))):
+        gate(_decode_attention_inputs(4, 512, 2, 7, 64, pos, seed=7),
+             f"B=4 Hkv=2 G=7 D=64 T=512 {label} positions")
+
+    timed = {}
+    for b, t, p in ((128, 1152, 575), (128, 1152, 1151), (256, 256, 255)):
+        args = _decode_attention_inputs(b, t, 8, 3, 128, torch.full((b,), p, device="cuda"),
+                                        seed=p)
+        gate(args, f"B={b} Hkv=8 G=3 D=128 T={t} position {p}")
+        nbytes = b * (p + 1) * 8 * 128 * 2 * 2 + 2 * b * 24 * 128 * 2 + b * 8
+        bound = _bound_ms(nbytes, 4 * b * 24 * (p + 1) * 128, 989e12)
+        ms, plain_ms = [], []
+        for order in ("kernel", "plain"), ("plain", "kernel"):
+            for which in order:
+                if which == "kernel":
+                    ms.append(_device_ms(lambda: decode_attention(*args), calls=50, reps=10))
+                else:
+                    plain_ms.append(_device_ms(lambda: ref.decode_attention_ref(*args),
+                                               calls=5, reps=3))
+        timed[(b, p)] = (float(np.median(ms)), float(np.median(plain_ms)), bound)
+        print(f"[decode_attention] B={b} Hkv=8 G=3 D=128 T={t} position {p}, "
+              f"{plan_decode_attention(b, 8, t)}, device time per call (CUDA graph): "
+              f"kernel_ms={timed[(b, p)][0]:.5f} plain_ms={timed[(b, p)][1]:.5f} "
+              f"bound_ms={bound[0]:.5f} ({bound[1]}: {nbytes} B at 3.35 TB/s) = "
+              f"{100 * bound[0] / timed[(b, p)][0]:.1f} % of the bound ({smi})")
+        del args
+    torch.cuda.empty_cache()
+    ms, plain_ms, bound = timed[(128, 1151)]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "none: the JAX package leaves decode attention to XLA",
+            "max_abs_err": worst["err"], "f64_limit_share": worst["share"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "ms_p575": timed[(128, 575)][0], "bound_ms_p575": timed[(128, 575)][2][0],
+            "ms_b256": timed[(256, 255)][0], "plain_ms_b256": timed[(256, 255)][1],
+            "bound_ms_b256": timed[(256, 255)][2][0]}
+
+
 def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     diff = (got.float() - want.float()).abs()
     both_nan = got.float().isnan() & want.float().isnan()
@@ -1189,19 +1297,24 @@ def _serve(model, params, reqs, sampling: str, max_new: int = MAX_NEW,
 
 
 def phase_main_path(model, params) -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.sampling import greedy_sample
 
     reqs = _requests(model.cfg)
     _serve(model, params, reqs[:1], "fused", max_new=4)  # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
-    greedy_sample.launches = 0
+    greedy_sample.launches = decode_attention.launches = 0
     fused = _serve(model, params, reqs, "fused")
-    launches = greedy_sample.launches
+    launches, attention = greedy_sample.launches, decode_attention.launches
     print(f"[serve] greedy_sample launches={launches}, fused decode "
-          f"launches={fused['decode_launches']}; max_memory_allocated="
+          f"launches={fused['decode_launches']}; decode_attention launches={attention} "
+          f"({model.cfg.n_layers} a decode step); max_memory_allocated="
           f"{torch.cuda.max_memory_allocated()} B")
     if launches == 0 or launches != fused["decode_launches"]:
         raise SystemExit("the main path did not launch greedy_sample once per decode launch")
+    if attention < model.cfg.n_layers * launches or attention % model.cfg.n_layers:
+        raise SystemExit("the main path did not launch decode_attention in every layer of "
+                         "every decode step")
     for uid, prompt in reqs:
         if len(fused["streams"][uid]) != MAX_NEW:
             raise SystemExit(f"request {uid} finished with {len(fused['streams'][uid])} "
@@ -1210,7 +1323,7 @@ def phase_main_path(model, params) -> dict:
     if host["streams"] != fused["streams"]:
         raise SystemExit("fused and host sampling gave different token streams")
     print("[serve] fused and host token streams are bit-identical")
-    return {"greedy_sample": launches}
+    return {"greedy_sample": launches, "decode_attention": attention}
 
 
 def phase_numerics(model, params, tag: str = "[numerics]", inputs: dict | None = None,
@@ -1983,7 +2096,7 @@ def fault(name: str | None, most_rows: int | None = None):
     (``parity_sweep.py --mutate``, ``tests/test_torch_parity_checks.py``);
     the forward is untouched. ``"kv_row"``: every attention over a KV cache
     reads each cached row one position late (the rows rolled by one along
-    the cache). ``"state"``: the first recurrent layer (an ssm's layer 0, a
+    the cache, the row's own new K/V with them). ``"state"``: the first recurrent layer (an ssm's layer 0, a
     hybrid's first Mamba layer) never writes its state. ``None``: no fault.
     With ``most_rows``, only decode steps of at most that many rows are
     wrong: the decode padded to B·S rows is right, so the B-row rules must
@@ -1998,17 +2111,30 @@ def fault(name: str | None, most_rows: int | None = None):
         yield
         return
     if name == "kv_row":
-        cached = L._cached_kv
+        from repro_torch.kernels import ops
 
-        def late(cache, k, *args):
+        cached, attend = L._cached_kv, ops.decode_attention_op
+
+        def late(cache, k, *args):  # the int8 and sharded caches' route
             k_all, v_all = cached(cache, k, *args)
             return (k_all.roll(1, 1), v_all.roll(1, 1)) if hit(k.shape[0]) else (k_all, v_all)
 
-        L._cached_kv = late
+        def late_op(q, k_cache, v_cache, k, v, pos):  # a bf16 cache's route
+            if not hit(q.shape[0]):
+                return attend(q, k_cache, v_cache, k, v, pos)
+            t = k_cache.shape[1]
+            own = (torch.arange(t, device=pos.device)[None, :] == pos[:, None])[..., None, None]
+            k_all = torch.where(own, k, k_cache).roll(1, 1)  # the own row rolled with the rest,
+            v_all = torch.where(own, v, v_cache).roll(1, 1)  # as over the other routes
+            rows, at = torch.arange(q.shape[0], device=pos.device), pos.clamp(max=t - 1)
+            return attend(q, k_all, v_all, k_all[rows, at][:, None], v_all[rows, at][:, None],
+                          pos)
+
+        L._cached_kv, ops.decode_attention_op = late, late_op
         try:
             yield
         finally:
-            L._cached_kv = cached
+            L._cached_kv, ops.decode_attention_op = cached, attend
         return
     if name != "state":
         raise ValueError(f"no fault {name!r}; the faults are {FAULTS}")
@@ -2076,6 +2202,20 @@ def _f32_forward(model, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         L._moe_ffn = ffn
     x = _norm(_f32(params["final_norm"]), x, cfg.norm_eps)
     return x @ model._head(params).float()
+
+
+@contextlib.contextmanager
+def _plain_decode_attention():
+    """``kernels.ops.decode_attention_op`` by its plain version, on a card
+    too; a fault planted around the op stays around it."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.decode_attention
+    ops.decode_attention = ref.decode_attention_ref
+    try:
+        yield
+    finally:
+        ops.decode_attention = kernel
 
 
 def _teacher_forced(model, params: dict, tokens: torch.Tensor, rows: int) -> torch.Tensor:
@@ -2222,8 +2362,11 @@ def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int =
     program on every draw and fails a wrong one (``parity_sweep.py``,
     ``--mutate``):
 
-    1. Exact: decode with its batch padded to the forward's B·S rows gives
-       the forward's logits bit for bit. A hybrid's forward scans where
+    1. Exact: decode with its batch padded to the forward's B·S rows, its
+       attention over the cache by the plain version (the forward's
+       einsums; the kernel sums in another order and is held to the plain
+       version by ``check_decode_attention``), gives the forward's logits
+       bit for bit. A hybrid's forward scans where
        decode steps the recurrence, so here its forward runs each Mamba
        layer in the step's formulation (:func:`_stepped_mamba`), and the
        two formulations are held to each other in f32
@@ -2266,9 +2409,11 @@ def _decode_parity(model, params: dict, tag: str, b: int = PARITY_ROWS, s: int =
         with watch(seen["wide"]):
             wide = _f32_forward(model, params, tokens).cpu().numpy()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    padded = _teacher_forced(model, params, tokens, b * s)
+    with _plain_decode_attention():
+        padded = _teacher_forced(model, params, tokens, b * s)
     same = torch.equal(padded, fwd)
-    print(f"{tag} decode padded to the forward's {b * s} product rows equals the forward"
+    print(f"{tag} decode padded to the forward's {b * s} product rows, its attention over the "
+          f"cache by the plain version, equals the forward"
           f"{' with its Mamba layers stepped' if cfg.family == 'hybrid' else ''} bit for "
           f"bit: {same}")
     if not same:
@@ -3726,7 +3871,9 @@ def phase_distributed(smi: str) -> dict:
     * qwen2-0.5b whole: 8 fused ``decode_and_sample`` steps (4 slots, a
       64-row cache) and 8 teacher-forced decode steps on the same
       tokens; ids and logits bit for bit, greedy_sample launched once a
-      sharded step (counted from 0 just before);
+      sharded step (counted from 0 just before). A sharded (DTensor)
+      cache keeps the einsums of decode attention, so the unsharded run
+      takes them too (``_plain_decode_attention``), not the kernel;
     * phi-3.5-MoE at its published widths, 2 of its 32 layers:
       ``moe_impl="shard_map"`` through the expert all-to-all over the NCCL
       group (``CommDebugMode`` counts each ``all_to_all_single``) against
@@ -3825,7 +3972,8 @@ def phase_distributed(smi: str) -> dict:
             return out_ids, out_logits
 
         caches = [model.init_cache(b, rows) for _ in range(2)]
-        (want_ids, want_logits), plain_s = timed(lambda: decode(params, *caches))
+        with _plain_decode_attention():  # the einsums, which the sharded cache runs
+            (want_ids, want_logits), plain_s = timed(lambda: decode(params, *caches))
         placed = with_shardings(params, param_shardings(mesh, params, cfg), mesh)
         caches = [model.init_cache(b, rows) for _ in range(2)]
         caches = [with_shardings(c, cache_shardings(mesh, cfg, c), mesh) for c in caches]
@@ -3892,7 +4040,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_build()
     phase_seeded_draw()
-    records = [phase_kernel_check(smi)]
+    records = [phase_kernel_check(smi), check_decode_attention(smi)]
 
     from repro_torch.configs import get
     from repro_torch.models.model import Model

@@ -7,8 +7,13 @@ git-ignored), and loaded with ``ctypes``; pointers and the stream cross as
 PyTorch's headers takes seconds, where ``torch.utils.cpp_extension`` takes
 minutes.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises, and so
-does a launch whose C entry point returns a CUDA error (:func:`check`).
+:func:`build_in_background` starts a build in a thread of its own, so it
+overlaps the caller's other set-up; a :func:`build` or :func:`load` of a
+name that is building waits for that build rather than start another
+``nvcc``. There is no fallback: a missing ``nvcc`` or a failed build raises,
+a background one at the first build or load of its name after it failed,
+and so does a launch whose C entry point returns a CUDA error
+(:func:`check`).
 :func:`sm_count` gives the card's SM count, by which the wrappers' plans
 size their grids. :func:`builds` gives what this process built and loaded,
 each ``nvcc`` run and ``ctypes`` load stamped by ``time.perf_counter_ns`` and
@@ -22,8 +27,9 @@ import dataclasses
 import os
 import shutil
 import subprocess
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import cache
 from pathlib import Path
@@ -53,6 +59,8 @@ class Build:
 
 _builds: dict[str, Build] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+_building: dict[str, Future] = {}  # each build under way, or failed in the background
+_lock = threading.Lock()
 
 
 def _offset_ns() -> int:
@@ -65,9 +73,61 @@ def kernel_names() -> list[str]:
 
 
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless this process already has."""
-    if name in _builds:
-        return _builds[name]
+    """Compile ``csrc/<name>.cu`` unless this process already has; where
+    another thread is building it, wait for that build."""
+    return _build(name, keep_failure=False)
+
+
+def build_in_background(name: str) -> None:
+    """Start building ``name`` in a thread of its own, unless it is built or
+    building; its first :func:`build` or :func:`load` waits for it and
+    raises if it failed."""
+    with _lock:
+        if name in _builds or name in _building:
+            return
+    threading.Thread(target=_build_quietly, args=(name,), name=f"build {name}",
+                     daemon=True).start()
+
+
+def _build_quietly(name: str) -> None:
+    try:
+        _build(name, keep_failure=True)
+    except Exception:  # kept in _building: the name's next build or load raises it
+        pass
+
+
+def _build(name: str, keep_failure: bool) -> Build:
+    with _lock:
+        if name in _builds:
+            return _builds[name]
+        running = _building.get(name)
+        mine = running is None
+        if mine:
+            running = _building[name] = Future()
+    if not mine:
+        try:
+            return running.result()
+        except BaseException:
+            with _lock:  # a failure reaches its waiters once; the next build tries anew
+                if _building.get(name) is running:
+                    del _building[name]
+            raise
+    try:
+        made = _nvcc(name)
+    except BaseException as e:
+        running.set_exception(e)
+        if not keep_failure:
+            with _lock:
+                del _building[name]
+        raise
+    with _lock:
+        _builds[name] = made
+        del _building[name]
+    running.set_result(made)
+    return made
+
+
+def _nvcc(name: str) -> Build:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
         raise RuntimeError("nvcc not found on PATH: the CUDA kernels cannot be built")
@@ -84,8 +144,7 @@ def build(name: str) -> Build:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
     os.replace(tmp, target)
-    _builds[name] = Build(name, target, (t0 + offset, t1 + offset), proc.stdout)
-    return _builds[name]
+    return Build(name, target, (t0 + offset, t1 + offset), proc.stdout)
 
 
 def build_all(names: list[str]) -> list[Build]:
@@ -108,10 +167,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
     if name not in _libs:
         path = build(name).path
-        offset, t0 = _offset_ns(), time.perf_counter_ns()
-        _libs[name] = ctypes.CDLL(str(path))
-        t1 = time.perf_counter_ns()
-        _builds[name] = dataclasses.replace(_builds[name], load_ns=(t0 + offset, t1 + offset))
+        with _lock:
+            if name not in _libs:
+                offset, t0 = _offset_ns(), time.perf_counter_ns()
+                _libs[name] = ctypes.CDLL(str(path))
+                t1 = time.perf_counter_ns()
+                _builds[name] = dataclasses.replace(_builds[name],
+                                                    load_ns=(t0 + offset, t1 + offset))
     return _libs[name]
 
 

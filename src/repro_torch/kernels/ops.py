@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
+from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .matmul import configured_matmul, matmul
 from .sampling import greedy_sample, top_k
@@ -34,6 +35,15 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
     """q, k, v: (B, H, S, D). GQA callers repeat K/V heads before the call."""
     return flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One decode step's attention: q (B, 1, Hq, D) over the K/V caches
+    (B, T, Hkv, D), read where they lie, up to each row's position ``pos``
+    (B,), the row's new k and v (B, 1, Hkv, D) standing in for the cache's
+    row at its position → (B, 1, Hq, D)."""
+    return decode_attention(q, k_cache, v_cache, k, v, pos)
 
 
 def _by_rows(kernel, logits: torch.Tensor, *args):

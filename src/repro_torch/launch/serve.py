@@ -81,6 +81,7 @@ import torch
 
 from repro_torch.configs import get
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.sampling import greedy_sample
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import Span, Tracer
@@ -107,6 +108,7 @@ class Graph:
     k: int  # decode steps captured
     launches: int  # greedy_sample launches the capture recorded
     replays: int = 0
+    attention_launches: int = 0  # decode_attention launches the capture recorded
 
 
 @dataclass
@@ -116,6 +118,7 @@ class ServeRun:
     sample_launches: int  # greedy_sample kernel launches in the timed loop
     trace: Tracer  # the call's spans (module docstring)
     graphs: list[Graph] = field(default_factory=list)  # fused on a card
+    attention_launches: int = 0  # decode_attention kernel launches in the timed loop
 
     def host(self, name: str) -> list[Span]:
         """The call's host spans named ``name``, in the order they ended."""
@@ -254,10 +257,11 @@ class _Loop:
 
 def _capture(loop: _Loop, k: int) -> tuple[torch.cuda.CUDAGraph, Graph]:
     graph = torch.cuda.CUDAGraph()
-    before = greedy_sample.launches
+    before, attention = greedy_sample.launches, decode_attention.launches
     with torch.cuda.graph(graph):
         loop.steps(k)
-    return graph, Graph(k, greedy_sample.launches - before)
+    return graph, Graph(k, greedy_sample.launches - before,
+                        attention_launches=decode_attention.launches - attention)
 
 
 def _warm_up_fused(loop: _Loop, k: int, marks: _Marks) -> None:
@@ -325,7 +329,7 @@ def serve(model: Model, params: dict, *, batch: int = 4, steps: int = 64,
         if on_card:
             torch.cuda.synchronize(model.device)
             marks.start(spans)
-        launches0 = greedy_sample.launches
+        launches0, attention0 = greedy_sample.launches, decode_attention.launches
         with spans("serve.loop", "serve.call", cat="step"):
             if fused:
                 for i, k in enumerate(schedule):
@@ -357,13 +361,15 @@ def serve(model: Model, params: dict, *, batch: int = 4, steps: int = 64,
                 marks.end.synchronize()
         stats = [g for _, g in graphs.values()]
         launches = greedy_sample.launches - launches0 + sum(g.launches * g.replays for g in stats)
+        attention = (decode_attention.launches - attention0
+                     + sum(g.attention_launches * g.replays for g in stats))
         with spans("serve.gather", "serve.call", cat="wire"):
             out = torch.cat(ids).cpu() if ids else torch.empty((0, batch), dtype=torch.int32)
         device_ms = None
         if on_card:
             device_ms = marks.begin.elapsed_time(marks.end)
             marks.place(spans, model.device)
-    return ServeRun(out, device_ms, launches, spans.trace, stats)
+    return ServeRun(out, device_ms, launches, spans.trace, stats, attention)
 
 
 def main(argv=None) -> None:
@@ -401,12 +407,14 @@ def main(argv=None) -> None:
           f"host issue {sum(run.issue_ms) / max(run.launches, 1):.3f} ms a launch over "
           f"{run.launches} launches")
     if run.device_ms is not None:
-        graphs = ", ".join(f"k={g.k}: {g.launches} greedy_sample launches captured, "
-                           f"{g.replays} replays" for g in run.graphs)
+        graphs = ", ".join(f"k={g.k}: {g.launches} greedy_sample and {g.attention_launches} "
+                           f"decode_attention launches captured, {g.replays} replays"
+                           for g in run.graphs)
         busy = sum(s.cycles for s in run.trace.spans if s.cat == "compute") / 1e6
         print(f"[serve] device {run.device_ms / max(run.produced, 1):.3f} ms/step (CUDA events "
               f"around the timed loop); {busy:.1f} ms in the warm-up's and the launches' "
-              f"device intervals; greedy_sample launches {run.sample_launches}; "
+              f"device intervals; greedy_sample launches {run.sample_launches}, "
+              f"decode_attention launches {run.attention_launches}; "
               f"{len(run.graphs)} graphs captured in {run.capture_s:.3f} s"
               + (f" ({graphs})" if graphs else ""))
 

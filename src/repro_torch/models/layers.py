@@ -37,6 +37,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed.spmd import ambient_mesh, shard_local_write, traced_once
 from ..kernels import ops as kernel_ops
+from ..kernels.ref import gqa_combine, gqa_scores
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -192,20 +193,6 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, -1)
 
 
-def gqa_scores(q: torch.Tensor, k: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """q: (B,S,Hq,D), k: (B,T,Hkv,D) -> scores (B,Hkv,G,S,T)."""
-    b, s, hq, d = q.shape
-    qg = q.reshape(b, s, n_kv, hq // n_kv, d)
-    return torch.einsum("bsngd,btnd->bngst", qg, k) / math.sqrt(d)
-
-
-def gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """probs: (B,Hkv,G,S,T), v: (B,T,Hkv,D) -> (B,S,Hq,D)."""
-    b, n, g, s, _t = probs.shape
-    out = torch.einsum("bngst,btnd->bsngd", probs, v)
-    return out.reshape(b, s, n * g, -1)
-
-
 def cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unmasked attention of q (B, S, Hq, D) over every row of k and v
     (B, T, Hkv, D): :func:`gqa_scores`, the f32 softmax and
@@ -344,7 +331,12 @@ def attention_apply(
     attending to the cache rows up to its position. Every slot, a
     masked-out one too, attends with its own new K/V at its position, as
     the reference's do: under MoE the rows meet in one capacity-limited
-    expert buffer, so a masked row's numbers reach the live rows."""
+    expert buffer, so a masked row's numbers reach the live rows. A plain
+    bf16 cache is attended over by ``kernels.ops.decode_attention_op``
+    (on a card the hand-written kernel, which reads the cache where it lies
+    and only up to each position; on the CPU the einsums below, bit for
+    bit); an int8 or a sharded (DTensor) cache by :func:`_cached_kv` and
+    the einsums."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     src = x if kv is None else kv
     q = x @ params["wq"]
@@ -364,6 +356,11 @@ def attention_apply(
             k = rope(k, cache_pos[:, None].expand(k.shape[:2]), cfg.rope_theta)
 
     b, s = x.shape[:2]
+    if cache is not None and s == 1 and _plain_bf16(cache):
+        for key, val in (("k", k), ("v", v)):
+            masked_cache_write(cache[key], val, cache_pos, update_mask)
+        out = kernel_ops.decode_attention_op(q, cache["k"], cache["v"], k, v, cache_pos)
+        return out.reshape(b, s, -1) @ params["wo"]
     if cache is not None:
         cols = torch.arange(cache["k"].shape[1], device=x.device)[None, :]  # (1, T)
         k, v = _cached_kv(cache, k, v, cols, cache_pos, update_mask)
@@ -385,6 +382,14 @@ def attention_apply(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)  # bf16 as the reference's; f32 in f32
     out = gqa_combine(probs, v)
     return out.reshape(b, s, -1) @ params["wo"]
+
+
+def _plain_bf16(cache: dict) -> bool:
+    """Whether a layer's cache holds plain (not DTensor) bf16 K/V, which a
+    decode step attends over with ``kernels.ops.decode_attention_op``; an
+    int8 cache and a sharded one take :func:`_cached_kv` and the einsums."""
+    k = cache["k"]
+    return "k_scale" not in cache and not isinstance(k, DTensor) and k.dtype == COMPUTE_DTYPE
 
 
 def _cached_kv(cache: dict, k: torch.Tensor, v: torch.Tensor, cols: torch.Tensor,

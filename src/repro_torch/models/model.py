@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..distributed.spmd import constrain
+from ..kernels import _build
 from ..kernels import ops as kernel_ops
 from . import layers as L
 from .config import ModelConfig
@@ -142,6 +143,10 @@ class Model:
                              f"attn_period={cfg.attn_period} layers")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.cache_has_positions and torch.cuda.is_available():
+            # the decode step's attention kernel, compiled while the caller
+            # sets up the rest (weights, other kernels), not at the first step
+            _build.build_in_background("decode_attention")
 
     @property
     def cache_has_positions(self) -> bool:
