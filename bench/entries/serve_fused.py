@@ -37,7 +37,7 @@ import torch
 
 from bench import reference as ref_common
 from bench import weights
-from bench.harness import BENCH, Refused
+from bench.harness import BENCH, Refused, program_config
 
 START_TOKEN = 1  # the driver's first input of every row, at 0 and at ``fuse``
 
@@ -159,8 +159,9 @@ def _sequences(calls: list, fuse: int, steps: int, batch: int, vocab: int):
 
 class Program:
     """The program as the cell drives it: the model at the cell's
-    configuration and one ``serve()`` call at the traffic's shape, its
-    warm-up ids kept."""
+    configuration (``harness.program_config``: the registered one at the
+    file's depth, with its ``"program"`` settings; or ``arch``) and one
+    ``serve()`` call at the traffic's shape, its warm-up ids kept."""
 
     def __init__(self, cell, device: str, arch=None):
         from repro_torch.configs import get
@@ -168,8 +169,9 @@ class Program:
         from repro_torch.launch.serve import serve
         from repro_torch.models.model import Model
 
-        self.cfg = arch or get(cell.config["arch"])
-        wrong = _disagreements(self.cfg, cell.module("reference").program_fields(cell.config))
+        fields = cell.module("reference").program_fields
+        self.cfg = arch or program_config(get(cell.config["arch"]), cell.config, fields)
+        wrong = _disagreements(self.cfg, fields(cell.config))
         if wrong:
             raise Refused(f"the program's {self.cfg.name} is not {cell.config['name']}: "
                           f"{'; '.join(wrong)}")
@@ -259,6 +261,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
     notes.append(f"window calls {len(calls)} window_s {window_s!r} tokens {tokens} "
                  f"timed_loops_s {sum(r.wall_s for r in runs)!r} "
                  f"capture_s {sum(r.capture_s for r in runs)!r}")
+    notes.append(f"window each_call capture_s {[r.capture_s for r in runs]!r} "
+                 f"timed_loop_s {[r.wall_s for r in runs]!r}")
 
     sequences, failed = prog.sequences(calls)
     del calls

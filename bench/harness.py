@@ -7,6 +7,11 @@ names a module of ``bench/entries``) and its own limits
 (``bench/limits/<cell>.json``). A per-layer metric is read by
 ``bench/metrics/<name>.py``; a family's counts and reference are
 ``bench/counts/<family>.py`` and ``bench/reference/<family>.py``.
+
+The program runs a configuration's registered ``ModelConfig``, cut where
+the file says so (:func:`program_config`): to the file's depth, where the
+file lists the key that sets it under ``reduced``, and with the few settings
+of :data:`SETTINGS` that its ``"program"`` mapping puts over it.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import importlib
 import json
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -22,6 +27,12 @@ BENCH = ROOT / "bench"
 # top-level module names that no run may hold once its window has closed:
 # JAX, its libraries, the JAX package and the JAX package's own benchmarks
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
+# the one ModelConfig field that a cut to a card changes: depth
+CUT = "n_layers"
+# the ModelConfig fields that a file's "program" may set, each with a reason
+# under "assumed": settings of the published model that the port's defaults
+# do not state, never a precision, a width or a kernel route
+SETTINGS = frozenset({"capacity_factor"})
 
 
 class Refused(Exception):
@@ -61,6 +72,43 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     config = _json(root / {c["name"]: c for c in spec["configs"]}[w["config"]]["file"])
     return Cell(name, w["chips"], config, _json(BENCH / "traffic" / f"{w['traffic']}.json"),
                 _json(BENCH / "limits" / f"{name}.json"))
+
+
+def cut_refusals(registered, config: dict, program_fields) -> list[str]:
+    """Where a configuration file breaks the rules of a cut. Its numbers
+    (``program_fields(config)``) are the registered configuration's, but
+    depth (:data:`CUT`), which may be less only where the file lists the key
+    that sets it under ``reduced`` and that key's ``published`` value gives
+    the registered depth. Its ``"program"`` holds only :data:`SETTINGS`, each
+    with a reason under ``assumed``."""
+    published = {k: v for k, v in config.get("published", {}).items() if k in config["reduced"]}
+    as_published = program_fields({**config, **published})
+    out = []
+    for key, value in program_fields(config).items():
+        was = getattr(registered, key)
+        if value == was:
+            continue
+        if key != CUT:
+            out.append(f"{key} {value!r} (registered {was!r}): a cut changes depth alone")
+        elif as_published[key] != was or value > was:
+            out.append(f"{key} {value!r} (registered {was!r}): no key of reduced has a "
+                       f"published value that gives {was!r}")
+    for key, value in config.get("program", {}).items():
+        if key not in SETTINGS:
+            out.append(f"{key} is no setting that a file may change ({', '.join(sorted(SETTINGS))})")
+        elif key not in config.get("assumed", {}):
+            out.append(f"{key} {value!r} (registered {getattr(registered, key)!r}) has no "
+                       f"reason under assumed")
+    return out
+
+
+def program_config(registered, config: dict, program_fields):
+    """The configuration that the program runs: the registered one at the
+    file's depth, with the file's ``"program"`` settings over it."""
+    refused = cut_refusals(registered, config, program_fields)
+    if refused:
+        raise Refused(f"the cut of {config['name']}: {'; '.join(refused)}")
+    return replace(registered, **{CUT: program_fields(config)[CUT]}, **config.get("program", {}))
 
 
 def metrics_of(spec: dict, cell: str, kind: str) -> list[dict]:

@@ -30,6 +30,15 @@ def program_fields(c: dict) -> dict:
             "rope_theta": c["rope_theta"]}
 
 
+def reduced_file(c: dict, cfg) -> dict:
+    """The file ``c`` at a reduced program configuration ``cfg``'s numbers
+    (the benchmark's CPU tests)."""
+    return dict(c, hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
+                intermediate_size=cfg.d_ff, vocab_size=cfg.vocab_size,
+                num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim_)
+
+
 def init_rule(path: tuple, shape: tuple) -> tuple[float, float]:
     if path[-1] == "w":  # an RMSNorm's weight
         return 1.0, 0.1

@@ -41,6 +41,14 @@ def program_fields(c: dict) -> dict:
             "norm_eps": c["layer_norm_epsilon"], "tie_embeddings": c["tie_word_embeddings"]}
 
 
+def reduced_file(c: dict, cfg) -> dict:
+    """The file ``c`` at a reduced program configuration ``cfg``'s numbers
+    (the benchmark's CPU tests)."""
+    return dict(c, hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
+                intermediate_size=cfg.d_ff, vocab_size=cfg.vocab_size,
+                head_size=cfg.rwkv_head_dim, attention_hidden_size=cfg.d_model)
+
+
 def init_rule(path: tuple, shape: tuple) -> tuple[float, float]:
     if path[-1] in _VECTORS:
         return _VECTORS[path[-1]]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import sys
 
 import pytest
@@ -31,22 +32,35 @@ def one_cell_a_family() -> list[str]:
     return list(out.values())
 
 
-def reduced_cell(name: str, **traffic):
-    """(cell, program config): the cell's configuration file rewritten at the
-    reduced widths, its traffic at :data:`SHORT` (and ``traffic``)."""
+def families(root=harness.ROOT) -> list[str]:
+    """The families that the manifest's configuration files name."""
+    return sorted({harness._json(root / c["file"])["family"]
+                   for c in harness.manifest(root)["configs"]})
+
+
+def copy_manifest(root) -> None:
+    """``BENCHMARK.json`` and the configuration files it names, copied under
+    ``root`` (a ``pathlib.Path``) for a test that changes them; the cells
+    read them there by ``harness.load_cell(name, root)``."""
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    for c in harness.manifest()["configs"]:
+        (root / c["file"]).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(os.path.join(ROOT, c["file"]), root / c["file"])
+
+
+def reduced_cell(name: str, root=harness.ROOT, **traffic):
+    """(cell, program config): the cell's program configuration (the file's
+    cut over the registered one) reduced, its file rewritten at the reduced
+    numbers by the family's ``reduced_file``, its traffic at :data:`SHORT`
+    (and ``traffic``)."""
     from repro_torch.configs import get
 
-    cell = harness.load_cell(name)
-    cfg = dataclasses.replace(get(cell.config["arch"]).reduced(), remat="none")
-    c = dict(cell.config, hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
-             intermediate_size=cfg.d_ff, vocab_size=cfg.vocab_size)
-    if c["family"] == "dense":
-        c.update(num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
-                 head_dim=cfg.head_dim_)
-    else:
-        c.update(head_size=cfg.rwkv_head_dim, attention_hidden_size=cfg.d_model)
+    cell = harness.load_cell(name, root)
+    family = cell.module("reference")
+    program = harness.program_config(get(cell.config["arch"]), cell.config, family.program_fields)
+    cfg = dataclasses.replace(program.reduced(), remat="none")
     tr = {**cell.traffic, **SHORT, **traffic}
-    return dataclasses.replace(cell, config=c, traffic=tr), cfg
+    return dataclasses.replace(cell, config=family.reduced_file(cell.config, cfg), traffic=tr), cfg
 
 
 @pytest.fixture

@@ -3,20 +3,42 @@ result without a card or without the program."""
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
 import sys
 
 from bench import harness
-from conftest import ROOT
+from conftest import ROOT, copy_manifest, families
 
-# every module of the benchmark that a run on the card imports, and the
-# program's modules that they import
-IMPORTS = ["bench.harness", "bench.entries.serve_fused", "bench.trace", "bench.readings",
-           "bench.counts.dense", "bench.counts.ssm", "bench.reference.dense",
-           "bench.reference.ssm"] + [f"bench.metrics.{m['name']}"
-                                    for m in harness.manifest()["per_layer"]]
+
+def imports(root=harness.ROOT) -> list[str]:
+    """Every module of the benchmark that a run on the card imports, found
+    from the manifest: the entry of each cell's traffic, the counts and
+    reference of each family that a configuration names, and the reader of
+    each per-layer metric."""
+    spec = harness.manifest(root)
+    entries = {harness.load_cell(w["name"], root).traffic["entry"] for w in spec["workloads"]}
+    return (["bench.harness", "bench.trace", "bench.readings"]
+            + [f"bench.entries.{entry}" for entry in sorted(entries)]
+            + [f"bench.{kind}.{family}" for family in families(root)
+               for kind in ("counts", "reference")]
+            + [f"bench.metrics.{m['name']}" for m in spec["per_layer"]])
+
+
+IMPORTS = imports()
+
+
+def test_the_imports_follow_the_manifests_families(tmp_path):
+    copy_manifest(tmp_path)
+    spec = harness.manifest(tmp_path)
+    spec["configs"].append({"name": "moe-model", "file": "moe.json"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    (tmp_path / "moe.json").write_text(json.dumps({"family": "moe"}))
+    found = imports(tmp_path)
+    assert set(IMPORTS) < set(found)
+    assert set(found) - set(IMPORTS) == {"bench.counts.moe", "bench.reference.moe"}
 
 
 def test_forbidden_names_are_compared_whole(monkeypatch):

@@ -10,6 +10,7 @@ import re
 import pytest
 
 from bench import harness
+from conftest import families
 
 SPEC = harness.manifest()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
@@ -67,6 +68,27 @@ def test_configs_are_used_and_reduced_keys_named():
         assert not any(k.endswith(("_dim", "_rank", "_size")) for k in c["reduced"])
         assert c["file"].startswith(tuple(p + "/" for p in SPEC["paths"]))
         assert harness._json(harness.ROOT / c["file"])["reduced"] == c["reduced"]
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_each_configurations_cut_keeps_the_rules(config):
+    """The file's ``program`` over the registered configuration: fields of
+    it, no width, a published size cut only through ``reduced``."""
+    from repro_torch.configs import get
+
+    c = harness._json(harness.ROOT / {e["name"]: e["file"] for e in SPEC["configs"]}[config])
+    fields = importlib.import_module(f"bench.reference.{c['family']}").program_fields
+    assert harness.cut_refusals(get(c["arch"]), c, fields) == []
+
+
+@pytest.mark.parametrize("family", families())
+def test_each_family_has_its_counts_and_reference(family):
+    counts = importlib.import_module(f"bench.counts.{family}")
+    reference = importlib.import_module(f"bench.reference.{family}")
+    for module, names in ((counts, ("step", "weight_bytes")),
+                          (reference, ("program_fields", "init_rule", "logits", "reduced_file"))):
+        for name in names:
+            assert callable(getattr(module, name, None)), f"{module.__name__}.{name}"
 
 
 def test_cells_one_chip_each_and_distinct_pairs():
